@@ -1,0 +1,18 @@
+"""HeteroFusionRCNN in PyTorch + CUDA for NVIDIA Hopper (H100).
+
+The two-stage LiDAR+camera KITTI detector of `heterofusionrcnn_tpu`,
+written in PyTorch, with hand-written `sm_90a` CUDA kernels for the hot
+ops of inference: exact KNN, farthest point sampling, the fused XConv and
+oriented (rotated-BEV) NMS (`ops/csrc/*.cu`, built with `nvcc` at first
+use). Every kernel wrapper dispatches by the device of its input: a CUDA
+tensor launches the kernel, a CPU tensor runs the plain PyTorch version
+beside it, and nothing falls back from one to the other.
+
+Layouts follow the JAX package at public functions: points (B, N, 3),
+images NHWC, box_3d [x, y, z, l, w, h, ry]. Weights are interchangeable
+with the flax models through `heterofusionrcnn_torch.convert`.
+
+This package imports neither jax nor `heterofusionrcnn_tpu`.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,118 @@
+"""Fused two-stage inference: RPN -> proposals -> RCNN -> final boxes.
+
+Mirrors the fused function that `bench.py` builds (`build_stages` ->
+`fused`): the RPN in test mode with its stage-1 features saved, then the
+RCNN on the 100 proposals per frame, reusing the stage-1 image feature map
+(one VGG pass per frame) when the RCNN config asks for it
+(`rcnn_use_rpn_img_feature_map`). Runs on the card unless the caller
+passes `device="cpu"`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from heterofusionrcnn_torch.configs.config import PipelineConfig
+from heterofusionrcnn_torch.configs.presets import rcnn_multiclass, rpn_multiclass
+from heterofusionrcnn_torch.models.extractors.layers import init_weights
+from heterofusionrcnn_torch.models.rcnn import RcnnModel
+from heterofusionrcnn_torch.models.rpn import RpnModel
+
+# KITTI class mean sizes [l, w, h] of Car, Pedestrian, Cyclist.
+CLUSTER_SIZES = ((3.9, 1.6, 1.56), (0.8, 0.66, 1.74), (1.76, 0.6, 1.73))
+
+
+def exact_float32() -> None:
+    """Keep float32 matmuls and convolutions in full float32 on the card
+    (TF32 would drop to ~3 decimal digits, the role the JAX package's
+    `Precision.HIGHEST` pins play against the TPU's bf16 default)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class TwoStageDetector(nn.Module):
+    """RPN + RCNN in test mode."""
+
+    def __init__(self, rpn_cfg: PipelineConfig, rcnn_cfg: PipelineConfig,
+                 cluster_sizes: Sequence[Tuple[float, float, float]] = CLUSTER_SIZES):
+        super().__init__()
+        self.rpn = RpnModel(rpn_cfg.model_config, len(cluster_sizes), cluster_sizes)
+        lc = rpn_cfg.model_config.layers_config
+        fts_channels = self.rpn.pc_pointcnn.out_channels + lc.img_vgg_pyr.vgg_conv1[1]
+        self.rcnn = RcnnModel(rcnn_cfg.model_config, len(cluster_sizes), cluster_sizes,
+                              fts_channels)
+        self.shared_vgg = rcnn_cfg.model_config.rcnn_config.rcnn_use_rpn_img_feature_map
+
+    @torch.no_grad()
+    def forward(self, pc: torch.Tensor, img: torch.Tensor, p2: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """pc (B, P, 4), img (B, H, W, 3), p2 (B, 3, 4) ->
+        final_boxes (B, 100, 7), final_scores (B, 100), num_final (B,)."""
+        rpn_out = self.rpn(pc, img, p2)
+        fts = torch.cat([rpn_out["rpn_fts"], rpn_out["rpn_img_fts"]], dim=-1)
+        rcnn_out = self.rcnn(
+            rpn_out["proposals"],
+            rpn_out["rpn_pts"],
+            rpn_out["rpn_intensity"][..., 0],
+            rpn_out["foreground_mask"].float(),
+            fts,
+            img,
+            p2,
+            img_feature_map=rpn_out["img_feature_map"] if self.shared_vgg else None,
+        )
+        return {
+            "final_boxes": rcnn_out["final_boxes"],
+            "final_scores": rcnn_out["final_scores"],
+            "num_final": rcnn_out["num_boxes_before_padding"],
+        }
+
+
+def random_batch(cfg: PipelineConfig, batch_size: int, seed: int) -> Dict[str, np.ndarray]:
+    """Synthetic inputs with the dataset's shapes (the JAX package's
+    `__graft_entry__._random_rpn_batch`): points in front of the camera,
+    a uniform image and a fixed P2."""
+    rng = np.random.default_rng(seed)
+    ic = cfg.model_config.input_config
+    p = ic.pc_sample_pts
+    pc = rng.uniform(-40, 40, (batch_size, p, 4)).astype(np.float32)
+    pc[..., 2] = np.abs(pc[..., 2]) + 1.0
+    pc[..., 3] = rng.uniform(-0.5, 0.5, (batch_size, p))
+    img = rng.uniform(0, 255, (batch_size, ic.img_dims_h, ic.img_dims_w, 3)).astype(np.float32)
+    p2 = np.tile(
+        np.array(
+            [[700.0, 0.0, ic.img_dims_w / 2, 40.0],
+             [0.0, 700.0, ic.img_dims_h / 2, 2.0],
+             [0.0, 0.0, 1.0, 0.0]],
+            np.float32,
+        ),
+        (batch_size, 1, 1),
+    )
+    return {"point_cloud": pc, "image_input": img, "stereo_calib_p2": p2}
+
+
+def build_two_stage(
+    batch_size: int = 4,
+    seed: int = 0,
+    device: str = "cuda",
+    rpn_cfg: Optional[PipelineConfig] = None,
+    rcnn_cfg: Optional[PipelineConfig] = None,
+):
+    """The full-width `rpn_multiclass` / `rcnn_multiclass` detector with
+    random weights from `seed`, in eval mode on `device`, and a synthetic
+    batch from the same seed. Returns (detector, (pc, img, p2))."""
+    if device != "cpu" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    exact_float32()
+    rpn_cfg = rpn_cfg or rpn_multiclass()
+    rcnn_cfg = rcnn_cfg or rcnn_multiclass()
+    rcnn_cfg.model_config.rcnn_config.rcnn_use_rpn_img_feature_map = True
+    det = init_weights(TwoStageDetector(rpn_cfg, rcnn_cfg), seed).to(device).eval()
+    batch = random_batch(rpn_cfg, batch_size, seed)
+    inputs = tuple(
+        torch.from_numpy(batch[k]).to(device)
+        for k in ("point_cloud", "image_input", "stereo_calib_p2")
+    )
+    return det, inputs

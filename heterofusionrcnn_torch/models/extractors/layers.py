@@ -1,0 +1,192 @@
+"""Shared NN building blocks (PyTorch port of
+heterofusionrcnn_tpu/models/extractors/layers.py).
+
+Submodule and parameter names follow the flax param tree (`Dense_0`,
+`BatchNorm_0`, `depthwise`, ...) so `heterofusionrcnn_torch.convert` maps
+checkpoints by path. The pointfly convention is linear -> activation ->
+BatchNorm, BN with flax momentum 0.99 (torch 0.01) and epsilon 1e-3.
+Point layers work on channels-last (..., C) tensors; the image layers on
+NCHW, their callers convert from the NHWC of the public API.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.01
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """BatchNorm over the last dimension of a (..., C) tensor."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x):
+        shape = x.shape
+        return super().forward(x.reshape(-1, shape[-1])).reshape(shape)
+
+    def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Inference affine (s, t) with BN(x) = x * s + t."""
+        s = self.weight / torch.sqrt(self.running_var + self.eps)
+        return s, self.bias - self.running_mean * s
+
+
+class DenseBN(nn.Module):
+    """Dense -> ELU -> BN (pointfly.dense); without BN the Dense has a bias."""
+
+    def __init__(self, in_features: int, features: int, use_bn: bool = True,
+                 activation: bool = True):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_features, features, bias=not use_bn)
+        self.activation = activation
+        self.BatchNorm_0 = BatchNorm(features) if use_bn else None
+
+    def forward(self, x):
+        x = self.Dense_0(x)
+        if self.activation:
+            x = F.elu(x)
+        if self.BatchNorm_0 is not None:
+            x = self.BatchNorm_0(x)
+        return x
+
+
+class ConvOverK(nn.Module):
+    """(1, K) VALID conv as a Dense over the flattened (K, C) neighbourhood:
+    (B, P, K, C) -> (B, P, features)."""
+
+    def __init__(self, k: int, in_channels: int, features: int, use_bn=True,
+                 activation=True):
+        super().__init__()
+        self.DenseBN_0 = DenseBN(k * in_channels, features, use_bn, activation)
+
+    def forward(self, x):
+        b, p, k, c = x.shape
+        return self.DenseBN_0(x.reshape(b, p, k * c))
+
+
+class DepthwiseConvOverK(nn.Module):
+    """(1, K) depthwise conv with a depth multiplier:
+    (B, P, K, C) -> (B, P, C * depth_multiplier)."""
+
+    def __init__(self, k: int, in_channels: int, depth_multiplier: int,
+                 use_bn=True, activation=True):
+        super().__init__()
+        self.depthwise = nn.Parameter(torch.empty(k, in_channels, depth_multiplier))
+        self.activation = activation
+        self.BatchNorm_0 = BatchNorm(in_channels * depth_multiplier) if use_bn else None
+
+    def forward(self, x):
+        b, p, k, c = x.shape
+        out = torch.einsum("bpkc,kcj->bpcj", x, self.depthwise).reshape(b, p, -1)
+        if self.activation:
+            out = F.elu(out)
+        if self.BatchNorm_0 is not None:
+            out = self.BatchNorm_0(out)
+        return out
+
+
+class SeparableConvOverK(nn.Module):
+    """(1, K) separable conv (depthwise then pointwise, no nonlinearity in
+    between), ELU + BN at the end: (B, P, K, C) -> (B, P, features). The
+    two weights compose into one (K, C, features) kernel."""
+
+    def __init__(self, k: int, in_channels: int, features: int,
+                 depth_multiplier: int = 1, use_bn=True, activation=True):
+        super().__init__()
+        self.depth_multiplier = depth_multiplier
+        self.depthwise = nn.Parameter(torch.empty(k, in_channels, depth_multiplier))
+        self.Dense_0 = nn.Linear(in_channels * depth_multiplier, features, bias=not use_bn)
+        self.activation = activation
+        self.BatchNorm_0 = BatchNorm(features) if use_bn else None
+
+    def composed_weight(self) -> torch.Tensor:
+        k, c, dm = self.depthwise.shape
+        wp = self.Dense_0.weight.t().reshape(c, dm, -1)
+        return torch.einsum("kcj,cjd->kcd", self.depthwise, wp)
+
+    def forward(self, x):
+        b, p, k, c = x.shape
+        out = x.reshape(b, p, k * c) @ self.composed_weight().reshape(k * c, -1)
+        if self.Dense_0.bias is not None:
+            out = out + self.Dense_0.bias
+        if self.activation:
+            out = F.elu(out)
+        if self.BatchNorm_0 is not None:
+            out = self.BatchNorm_0(out)
+        return out
+
+
+class ConvBNRelu(nn.Module):
+    """3x3 SAME conv (with bias) + BN + ReLU on NCHW."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_channels, features, kernel, padding=kernel // 2)
+        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x):
+        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
+
+
+class ConvTransposeBNRelu(nn.Module):
+    """3x3 stride-2 SAME transposed conv (with bias) + BN + ReLU on NCHW,
+    output (2H, 2W).
+
+    Flax's SAME stride-2 ConvTranspose sends x[m] to y[2m + t] through tap
+    w[2 - t]; torch's transposed conv sends it to y[2m - pad + t] through
+    w[t]. So `ConvTranspose_0` holds the flax kernel flipped in both spatial
+    axes (the converter flips it), runs with padding 0 (output 2H + 1) and
+    the last row and column are cropped."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3):
+        super().__init__()
+        self.ConvTranspose_0 = nn.ConvTranspose2d(in_channels, features, kernel, stride=2)
+        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x):
+        h, w = x.shape[2], x.shape[3]
+        y = self.ConvTranspose_0(x)[:, :, : 2 * h, : 2 * w]
+        return F.relu(self.BatchNorm_0(y))
+
+
+def glorot_normal_(t: torch.Tensor, fan_in: int, fan_out: int, gen: torch.Generator):
+    """Truncated (2 sigma) glorot normal, flax's default kernel init."""
+    std = math.sqrt(2.0 / (fan_in + fan_out)) / 0.87962566103423978
+    with torch.no_grad():
+        t.copy_(
+            torch.nn.init.trunc_normal_(
+                torch.empty(t.shape), std=std, a=-2 * std, b=2 * std, generator=gen
+            )
+        )
+
+
+def init_weights(module: nn.Module, seed: int) -> nn.Module:
+    """Random weights from `seed`, on the CPU then moved: glorot kernels,
+    zero biases, BN scale 1 / shift 0, running mean 0 / var 1."""
+    gen = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            glorot_normal_(m.weight, m.in_features, m.out_features, gen)
+        elif isinstance(m, nn.Conv2d):
+            o, i, kh, kw = m.weight.shape
+            glorot_normal_(m.weight, i * kh * kw, o * kh * kw, gen)
+        elif isinstance(m, nn.ConvTranspose2d):
+            i, o, kh, kw = m.weight.shape
+            glorot_normal_(m.weight, i * kh * kw, o * kh * kw, gen)
+        elif isinstance(m, (DepthwiseConvOverK, SeparableConvOverK)):
+            k, c, dm = m.depthwise.shape
+            glorot_normal_(m.depthwise, k * c, k * dm, gen)
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)) and m.bias is not None:
+            nn.init.zeros_(m.bias)
+        if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+            m.reset_running_stats()
+    return module

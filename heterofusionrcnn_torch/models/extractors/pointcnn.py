@@ -1,0 +1,191 @@
+"""PointCNN feature extractor (PyTorch port of
+heterofusionrcnn_tpu/models/extractors/pointcnn.py): an XConv encoder
+pyramid and an XDConv decoder back to the input points.
+
+Inference only: every XConv runs through the fused XConv op
+(`ops.xconv.fused_xconv`, the CUDA kernel on the card), as the JAX package
+routes inference through its fused Pallas kernel (`_fused_xconv_mode`).
+The modules hold the same parameters as the flax tree; `XConv.weights()`
+folds them for the fused op.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from heterofusionrcnn_torch.configs.config import PointCNNConfig
+from heterofusionrcnn_torch.models.extractors.layers import (
+    ConvOverK,
+    DenseBN,
+    DepthwiseConvOverK,
+    SeparableConvOverK,
+)
+from heterofusionrcnn_torch.ops.grouping import knn_point
+from heterofusionrcnn_torch.ops.sampling import farthest_point_sample, gather_point
+from heterofusionrcnn_torch.ops.xconv import XConvWeights, fused_xconv
+
+
+class XConv(nn.Module):
+    """One XConv block: KNN neighbourhood -> lift -> X-transform ->
+    separable conv over the neighbours (+ the optional global branch)."""
+
+    def __init__(self, K: int, D: int, C: int, C_pts_fts: int, c_in_fts: int,
+                 depth_multiplier: int, with_X_transformation: bool = True,
+                 with_global: bool = False, sorting_method: str = ""):
+        super().__init__()
+        if sorting_method:
+            raise NotImplementedError("sorted XConv neighbourhoods are not ported")
+        self.K, self.D, self.C = K, D, C
+        self.with_X_transformation = with_X_transformation
+        self.with_global = with_global
+        self.nn_fts_from_pts_0 = DenseBN(3, C_pts_fts)
+        self.nn_fts_from_pts = DenseBN(C_pts_fts, C_pts_fts)
+        if with_X_transformation:
+            self.X_0 = ConvOverK(K, 3, K * K)
+            self.X_1 = DepthwiseConvOverK(K, K, K)
+            self.X_2 = DepthwiseConvOverK(K, K, K, activation=False)
+        self.fts_conv = SeparableConvOverK(K, C_pts_fts + c_in_fts, C, depth_multiplier)
+        if with_global:
+            self.fts_global_0 = DenseBN(3, C // 4)
+            self.fts_global = DenseBN(C // 4, C // 4)
+
+    @property
+    def out_channels(self) -> int:
+        return self.C + (self.C // 4 if self.with_global else 0)
+
+    def weights(self) -> XConvWeights:
+        """Inference weights with the BatchNorms folded."""
+        def lin(dense_bn):
+            s, t = dense_bn.BatchNorm_0.folded()
+            return dense_bn.Dense_0.weight.t(), s, t
+
+        w1, s1, b1 = lin(self.nn_fts_from_pts_0)
+        w2, s2, b2 = lin(self.nn_fts_from_pts)
+        sc, bc = self.fts_conv.BatchNorm_0.folded()
+        w = XConvWeights(w1, s1, b1, w2, s2, b2, self.fts_conv.composed_weight(), sc, bc)
+        if self.with_X_transformation:
+            w.wx0, w.sx0, w.bx0 = lin(self.X_0.DenseBN_0)
+            w.wx1 = self.X_1.depthwise
+            w.sx1, w.bx1 = self.X_1.BatchNorm_0.folded()
+            w.wx2 = self.X_2.depthwise
+            w.sx2, w.bx2 = self.X_2.BatchNorm_0.folded()
+        return w
+
+    def forward(self, pts, fts, qrs, nn_idx=None):
+        """pts (B, N, 3), fts (B, N, Cp) or None, qrs (B, P, 3), optional
+        precomputed (B, P, K*D) KNN indices -> (B, P, out_channels)."""
+        if nn_idx is None:
+            _, nn_idx = knn_point(self.K * self.D, pts, qrs)
+        idx = nn_idx[:, :, :: self.D] if self.D > 1 else nn_idx
+        out = fused_xconv(pts, fts, qrs, idx.contiguous(), self.weights())
+        if self.with_global:
+            g = self.fts_global(self.fts_global_0(qrs))
+            return torch.cat([g, out], dim=-1)
+        return out
+
+
+class PointCNN(nn.Module):
+    """Config-driven XConv encoder + XDConv decoder.
+
+    forward(points (B, N, 3), features (B, N, Cf) or None) ->
+    (points (B, P_out, 3), features (B, P_out, C_out))."""
+
+    def __init__(self, config: PointCNNConfig, in_channels: int):
+        super().__init__()
+        if config.sampling != "fps":
+            raise NotImplementedError(f"sampling {config.sampling!r} is not ported")
+        self.config = config
+        xconvs, xdconvs = config.xconv_layers, config.xdconv_layers
+        out_ch: List[int] = [in_channels]
+        for i, lp in enumerate(xconvs):
+            if i == 0:
+                c_pts_fts = lp.C // 2 if in_channels == 0 else lp.C // 4
+                dm = 4
+            else:
+                c_pts_fts = xconvs[i - 1].C // 4
+                dm = math.ceil(lp.C / xconvs[i - 1].C)
+            layer = XConv(
+                lp.K, lp.D, lp.C, c_pts_fts, out_ch[-1], dm,
+                config.with_X_transformation,
+                config.with_global and i == len(xconvs) - 1,
+                config.sorting_method,
+            )
+            self.add_module(f"xconv_{i + 1}", layer)
+            out_ch.append(layer.out_channels)
+        for i, lp in enumerate(xdconvs):
+            tag = f"xdconv_{i + 1}"
+            c_fts = out_ch[lp.pts_layer_idx + 1] if i == 0 else out_ch[-1]
+            c = xconvs[lp.qrs_layer_idx].C
+            c_prev = xconvs[lp.pts_layer_idx].C
+            self.add_module(tag, XConv(
+                lp.K, lp.D, c, c_prev // 4, c_fts, 1,
+                config.with_X_transformation, False, config.sorting_method,
+            ))
+            self.add_module(tag + "_fuse", DenseBN(c + out_ch[lp.qrs_layer_idx + 1], c))
+            out_ch.append(c)
+        for i, fc in enumerate(config.fc_layers):
+            self.add_module(f"fc{i}", DenseBN(out_ch[-1], fc.C))
+            out_ch.append(fc.C)
+        self.out_channels = out_ch[-1]
+
+    def forward(self, points: torch.Tensor, features: Optional[torch.Tensor]):
+        cfg = self.config
+        xconvs = cfg.xconv_layers
+        layer_pts = [points]
+        layer_fts = [features]
+
+        # KNN cache keyed by tensor identity: the first XConv and the last
+        # XDConv query the same full point set. A query set drawn from a
+        # candidate set by FPS takes its rows of that set's same-set KNN
+        # (same candidates, same tie rule) instead of a fresh scan.
+        knn_cache = {}
+        subset_of = {}
+
+        def cached_knn(pts, qrs, k):
+            key = (id(pts), id(qrs), k)
+            if key not in knn_cache:
+                parent = subset_of.get(id(qrs))
+                same = (
+                    knn_cache.get((id(pts), id(pts), k))
+                    if parent is not None and parent[0] == id(pts)
+                    else None
+                )
+                if same is not None:
+                    sidx = parent[1].long()[:, :, None].expand(-1, -1, k)
+                    knn_cache[key] = torch.gather(same, 1, sidx)
+                else:
+                    knn_cache[key] = knn_point(k, pts, qrs)[1]
+            return knn_cache[key]
+
+        for i, lp in enumerate(xconvs):
+            pts, fts = layer_pts[-1], layer_fts[-1]
+            if lp.P == -1 or (i > 0 and lp.P == xconvs[i - 1].P):
+                qrs = pts
+            else:
+                fps_idx = farthest_point_sample(pts, lp.P)
+                qrs = gather_point(pts, fps_idx)
+                subset_of[id(qrs)] = (id(pts), fps_idx)
+            layer_pts.append(qrs)
+            nn_idx = cached_knn(pts, qrs, lp.K * lp.D)
+            layer_fts.append(getattr(self, f"xconv_{i + 1}")(pts, fts, qrs, nn_idx))
+
+        for i, lp in enumerate(cfg.xdconv_layers):
+            tag = f"xdconv_{i + 1}"
+            pts = layer_pts[lp.pts_layer_idx + 1]
+            fts = layer_fts[lp.pts_layer_idx + 1] if i == 0 else layer_fts[-1]
+            qrs = layer_pts[lp.qrs_layer_idx + 1]
+            fts_qrs = layer_fts[lp.qrs_layer_idx + 1]
+            nn_idx = cached_knn(pts, qrs, lp.K * lp.D)
+            out = getattr(self, tag)(pts, fts, qrs, nn_idx)
+            fused = getattr(self, tag + "_fuse")(torch.cat([out, fts_qrs], dim=-1))
+            layer_pts.append(qrs)
+            layer_fts.append(fused)
+
+        output_fts = layer_fts[-1]
+        for i in range(len(cfg.fc_layers)):
+            output_fts = getattr(self, f"fc{i}")(output_fts)
+        return layer_pts[-1], output_fts

@@ -1,0 +1,157 @@
+"""Device dispatch and the build of the hand-written CUDA kernels.
+
+Every op that has a kernel asks `use_kernel(...)` with its input tensors:
+CUDA tensors launch the kernel, CPU tensors run the plain PyTorch version
+that sits beside the kernel's wrapper. There is no switch that forces the
+plain version onto the card and no `try` that falls back to it: a kernel
+that does not build or launch raises.
+
+Each `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into its own
+shared library with a plain C interface, loaded with `ctypes`, at first use
+(`build_all` compiles every missing library at once, one `nvcc` process per
+source). Libraries land in `ops/_build/` (listed in `.gitignore`) under a
+name that hashes the source and the flags, so an edited source rebuilds.
+Each library exports `int <fn>(..., void* stream)` returning the
+`cudaError_t` of its launch, and `const char* hfr_error_string(int)`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List, Sequence
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+_ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_BASE_FLAGS = [
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+# Index-exact kernels (KNN, FPS, NMS) must round every product and sum the
+# way the plain PyTorch version does: no fused multiply-add contraction.
+_EXACT_FLAGS = ["--fmad=false"]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """True for CUDA inputs (launch the kernel), False for CPU inputs (plain
+    PyTorch version). Inputs must share one device; any other device
+    type raises."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"inputs on {dev} and {t.device}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (
+        os.path.join(home, "bin", "nvcc") if home else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME)")
+
+
+class CudaKernel:
+    """One `csrc/<name>.cu` source: its build, its C functions and its count
+    of launches (`launches`, raised by one in `launch` and nowhere else)."""
+
+    def __init__(self, source: str, functions: Dict[str, Sequence], exact: bool):
+        self.source = CSRC_DIR / source
+        self.functions = dict(functions)
+        self.flags = _ARCH_FLAGS + _BASE_FLAGS + (_EXACT_FLAGS if exact else [])
+        self.launches = 0
+        self.build_log = ""
+        self._lib = None
+
+    @property
+    def name(self) -> str:
+        return self.source.stem
+
+    @property
+    def lib_path(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update(" ".join(self.flags).encode())
+        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
+
+    def command(self, out: Path) -> List[str]:
+        return [_nvcc(), *self.flags, "-o", str(out), str(self.source)]
+
+    def load(self):
+        if self._lib is None:
+            if not self.lib_path.exists():
+                build_all([self])
+            lib = ctypes.CDLL(str(self.lib_path))
+            for fn, argtypes in self.functions.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = I
+            lib.hfr_error_string.argtypes = [I]
+            lib.hfr_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launch(self, fn: str, *args) -> None:
+        """Call `fn` on the current stream; raise on a refused launch."""
+        lib = self.load()
+        err = getattr(lib, fn)(*args, P(torch.cuda.current_stream().cuda_stream))
+        if err:
+            msg = lib.hfr_error_string(err).decode()
+            raise RuntimeError(f"{self.name}: {fn} failed: {msg} ({err})")
+        self.launches += 1
+
+
+def build_all(kernels: Iterable[CudaKernel]) -> None:
+    """Compile every kernel whose library is missing, all at once."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for k in kernels:
+        if k.lib_path.exists():
+            continue
+        tmp = k.lib_path.with_suffix(f".{os.getpid()}.tmp")
+        procs.append(
+            (k, tmp, subprocess.Popen(
+                k.command(tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+            ))
+        )
+    failed = []
+    for k, tmp, proc in procs:
+        out, _ = proc.communicate()
+        k.build_log = out
+        if proc.returncode != 0:
+            failed.append(f"{k.source.name}:\n{out}")
+            continue
+        os.replace(tmp, k.lib_path)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def pointers(*tensors: torch.Tensor) -> List[P]:
+    """Device pointers of contiguous tensors (None -> NULL)."""
+    out = []
+    for t in tensors:
+        if t is None:
+            out.append(P(None))
+            continue
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+        out.append(P(t.data_ptr()))
+    return out

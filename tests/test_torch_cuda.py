@@ -1,0 +1,145 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA card with `nvcc` (marker `cuda`) and skips
+without one. The file imports neither jax nor the JAX package, so it runs
+on a machine that has only PyTorch and the CUDA toolkit:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: indices and the index-exact kernels' distances bit for bit
+(the kernels round term by term, built without FMA contraction, like the
+plain versions); fused XConv features atol/rtol 1e-4 (FP32 sums in another
+order).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from heterofusionrcnn_torch.ops.grouping import knn_point, knn_point_plain
+from heterofusionrcnn_torch.ops.nms import oriented_nms, oriented_nms_plain
+from heterofusionrcnn_torch.ops.sampling import (
+    farthest_point_sample,
+    farthest_point_sample_plain,
+)
+from heterofusionrcnn_torch.ops.xconv import XConvWeights, fused_xconv, fused_xconv_plain
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _points(rng, b, n, grid):
+    if grid:  # integer coordinates: exact distances and exact ties
+        return rng.integers(-6, 7, (b, n, 3)).astype(np.float32)
+    return rng.uniform(-20, 20, (b, n, 3)).astype(np.float32)
+
+
+def _bev_boxes(rng, b, n):
+    cx = rng.uniform(-4, 4, (b, n))
+    cz = rng.uniform(-4, 4, (b, n))
+    hl = rng.uniform(0.5, 2.5, (b, n))
+    hw = rng.uniform(0.3, 1.5, (b, n))
+    ry = rng.uniform(-np.pi, np.pi, (b, n))
+    return np.stack([cx - hl, cz - hw, cx + hl, cz + hw, ry], -1).astype(np.float32)
+
+
+def _bn(rng, c):
+    return (
+        rng.uniform(0.5, 1.5, c).astype(np.float32),
+        (rng.standard_normal(c) * 0.1).astype(np.float32),
+        (rng.standard_normal(c) * 0.1).astype(np.float32),
+        rng.uniform(0.5, 2.0, c).astype(np.float32),
+    )
+
+
+def _xconv_params(rng, k, cf, cin, dm, d):
+    return {
+        "w1": (rng.standard_normal((3, cf)) * 0.5).astype(np.float32),
+        "bn1": _bn(rng, cf),
+        "w2": (rng.standard_normal((cf, cf)) * 0.3).astype(np.float32),
+        "bn2": _bn(rng, cf),
+        "wx0": (rng.standard_normal((k * 3, k * k)) * 0.4).astype(np.float32),
+        "bnx0": _bn(rng, k * k),
+        "wx1": (rng.standard_normal((k, k, k)) * 0.4).astype(np.float32),
+        "bnx1": _bn(rng, k * k),
+        "wx2": (rng.standard_normal((k, k, k)) * 0.4).astype(np.float32),
+        "bnx2": _bn(rng, k * k),
+        "wd": (rng.standard_normal((k, cin, dm)) * 0.3).astype(np.float32),
+        "wp": (rng.standard_normal((cin * dm, d)) * 0.2).astype(np.float32),
+        "bnc": _bn(rng, d),
+    }
+
+
+def _fold(scale, bias, mean, var, eps=1e-3):
+    s = scale / np.sqrt(var + eps)
+    return torch.from_numpy(s), torch.from_numpy(bias - mean * s)
+
+
+def _torch_weights(p, with_x):
+    t = torch.from_numpy
+    k, cin, dm = p["wd"].shape
+    wc = np.einsum("kcm,cmd->kcd", p["wd"], p["wp"].reshape(cin, dm, -1))
+    w = XConvWeights(t(p["w1"]), *_fold(*p["bn1"]), t(p["w2"]), *_fold(*p["bn2"]),
+                     t(np.ascontiguousarray(wc)), *_fold(*p["bnc"]))
+    if with_x:
+        w.wx0, (w.sx0, w.bx0) = t(p["wx0"]), _fold(*p["bnx0"])
+        w.wx1, (w.sx1, w.bx1) = t(p["wx1"]), _fold(*p["bnx1"])
+        w.wx2, (w.sx2, w.bx2) = t(p["wx2"]), _fold(*p["bnx2"])
+    return w
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,npoint", [(16384, 512), (512, 128), (100, 30)])
+def test_fps_kernel_matches_plain(cuda, n, npoint):
+    xyz = torch.from_numpy(_points(np.random.default_rng(4), 2, n, False)).to(cuda)
+    got = farthest_point_sample(xyz, npoint)
+    torch.testing.assert_close(got, farthest_point_sample_plain(xyz, npoint), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,k", [(False, 8), (True, 12), (False, 4)])
+def test_knn_kernel_matches_plain(cuda, grid, k):
+    rng = np.random.default_rng(5)
+    xyz = torch.from_numpy(_points(rng, 2, 3000, grid)).to(cuda)
+    qrs = torch.from_numpy(_points(rng, 2, 700, grid)).to(cuda)
+    got_d, got_i = knn_point(k, xyz, qrs)
+    want_d, want_i = knn_point_plain(k, xyz, qrs)
+    torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
+    torch.testing.assert_close(got_d, want_d, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,keep,thresh,masked", [(2000, 100, 0.5, False), (100, 100, 0.01, True)])
+def test_nms_kernel_matches_plain(cuda, n, keep, thresh, masked):
+    rng = np.random.default_rng(6)
+    boxes = torch.from_numpy(_bev_boxes(rng, 4, n)).to(cuda)
+    scores = torch.from_numpy(rng.uniform(0, 1, (4, n)).astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=(4, n)) > 0.3).to(cuda) if masked else None
+    got, _ = oriented_nms(boxes, scores, thresh, keep, valid)
+    torch.testing.assert_close(got, oriented_nms_plain(boxes, scores, thresh, keep, valid),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,cf,cp,d,with_x", [(8, 64, 1, 256, True), (12, 128, 40, 512, False)])
+def test_xconv_kernel_matches_plain(cuda, k, cf, cp, d, with_x):
+    rng = np.random.default_rng(7)
+    b, n, p = 2, 300, 100
+    params = _xconv_params(rng, k, cf, cf + cp, 2, d)
+    w = _torch_weights(params, with_x)
+    for f in w.__dataclass_fields__:
+        if getattr(w, f) is not None:
+            setattr(w, f, getattr(w, f).to(cuda))
+    pts = torch.from_numpy(rng.standard_normal((b, n, 3)).astype(np.float32)).to(cuda)
+    qrs = torch.from_numpy(rng.standard_normal((b, p, 3)).astype(np.float32)).to(cuda)
+    fts = torch.from_numpy(rng.standard_normal((b, n, cp)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, n, (b, p, k)).astype(np.int32)).to(cuda)
+    torch.testing.assert_close(fused_xconv(pts, fts, qrs, idx, w),
+                               fused_xconv_plain(pts, fts, qrs, idx, w), rtol=1e-4, atol=1e-4)
