@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--batch 4] [--iters 5] [--seed 0] [--out DIR]
+    python3 chip_smoke.py [--out DIR]
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the four hand-written kernels (`heterofusionrcnn_torch/ops/csrc`,
    one nvcc per source, all at once).
 3. Drives the main path: full-width `rpn_multiclass` -> `rcnn_multiclass`
-   two-stage inference (16384 points, 360x1200 images) with random weights
-   from --seed. Every launch count is set to 0 just before one forward and
-   read just after; each of the four kernels must have launched. The
-   forward is then timed over --iters batches with CUDA events and
-   profiled once (device time by kernel name, device busy share).
+   two-stage inference (16384 points, 360x1200 images) at batch 4 with
+   random weights and BatchNorm statistics from seed 0. Every launch count
+   is set to 0 just before one forward and read just after; each of the
+   four kernels must have launched. The forward is then timed over 5
+   batches with CUDA events and profiled once (device time by kernel name,
+   device busy share).
 4. Calls each kernel's wrapper again on the exact inputs that forward gave
-   it (recorded in a separate, uncounted forward) and holds the result
-   against the kernel's plain PyTorch version: indices bit-exact for KNN,
-   FPS and NMS, |kernel - plain| <= 1e-4 + 1e-4 |plain| for the fused XConv.
-   Times the kernel, the plain version and, where one PyTorch call
-   computes the same function, that call (`library_ms`, a yardstick the
-   port never calls); computes each kernel's bound from its inputs.
+   it (recorded in a separate, uncounted forward, one record per launch of
+   the counted one) and holds the result against the kernel's plain
+   PyTorch version: indices bit-exact for KNN, FPS and NMS,
+   |kernel - plain| <= 1e-4 + 1e-4 |plain| for the fused XConv. Times the
+   kernel, the plain version and, where one PyTorch call computes the same
+   function, that call (`library_ms`, a yardstick the port never calls);
+   computes each kernel's bound from its inputs, and FPS's latency floor
+   (npoint times the per-iteration time of the FPS kernel on 1024 points,
+   one a thread) for the report file.
 5. Checks the outputs: finite, expected shapes, sane counts, and the same
    detector at small width on the card agreeing with its CPU run.
 
@@ -40,6 +44,14 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM FP32 outside the tensor cores
 XCONV_RTOL = XCONV_ATOL = 1e-4
+BATCH = 4                      # frames per forward on the main path
+SEED = 0                       # weights, BatchNorm statistics and inputs
+ITERS = 5                      # forwards timed
+REPS = 10                      # kernel calls timed per main-path call
+# One rotated IoU in nms.cu: two clipping passes of 4 edges x 4 half-planes
+# at ~30 FP32 and compare operations each, ~10 more per half-plane for the
+# collinear test of the second pass, ~10 for the IoU itself.
+NMS_OPS_PER_IOU = 2 * 16 * 30 + 16 * 10 + 10
 
 TPU_KERNELS = {
     "knn": "heterofusionrcnn_tpu/ops/pallas_knn.py:356 (_knn_pallas_sorted), :472 (knn_pallas brute arm)",
@@ -47,6 +59,10 @@ TPU_KERNELS = {
     "nms": "heterofusionrcnn_tpu/ops/pallas_nms.py:138 (oriented_nms_pallas)",
     "xconv": "heterofusionrcnn_tpu/ops/pallas_xconv.py:263 (fused_xconv)",
 }
+# The op each kernel's wrapper is reached through on the main path; each
+# call of it launches the kernel once.
+KERNEL_OPS = {"knn": "knn_point", "fps": "farthest_point_sample",
+              "nms": "oriented_nms", "xconv": "fused_xconv"}
 
 
 def card_line() -> str:
@@ -83,6 +99,23 @@ class Recorder:
     def __call__(self, *args, **kwargs):
         self.calls.append((args, kwargs))
         return self.fn(*args, **kwargs)
+
+
+def randomize_batchnorm(module, seed):
+    """Seeded BatchNorm scales, shifts and running statistics, so every
+    folded BN shift in the kernels is non-zero and every scale differs
+    from 1 (a fresh init folds to shift 0, scale ~1)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            c = m.num_features
+            for t, lo, hi in ((m.weight, 0.5, 1.5), (m.running_var, 0.5, 2.0)):
+                t.copy_(lo + (hi - lo) * torch.rand(c, generator=gen))
+            for t in (m.bias, m.running_mean):
+                t.copy_(0.1 * torch.randn(c, generator=gen))
+    return module
 
 
 def record_kernel_inputs(det, inputs):
@@ -170,8 +203,13 @@ def check_kernels(calls, reps):
         r["library_ms"] += lms
         r["calls"].append(dict(shape=f"{b}x{p}q x {n} k{k}", ms=ms, plain_ms=pms, library_ms=lms))
 
-    # FPS: 9 FP32 operations (distance + min) per point per iteration.
+    # FPS: 9 FP32 operations (distance + min) per point per iteration. Its
+    # real floor is latency, npoint dependent block-wide argmaxes: one
+    # iteration is timed on 1024 points (one a thread, B=1, npoint=1024).
     r = row("fps", "heterofusionrcnn_torch/ops/csrc/fps.cu")
+    probe = torch.rand((1, 1024, 3), generator=torch.Generator().manual_seed(SEED)).cuda()
+    r["iteration_us"] = cuda_ms(lambda: sampling.farthest_point_sample(probe, 1024), reps) / 1024 * 1e3
+    r["latency_ms"] = 0.0
     for (xyz, npoint), _ in calls["farthest_point_sample"]:
         got = sampling.farthest_point_sample(xyz, npoint)
         if not torch.equal(got, sampling.farthest_point_sample_plain(xyz, npoint)):
@@ -180,12 +218,13 @@ def check_kernels(calls, reps):
         pms = cuda_ms(lambda: sampling.farthest_point_sample_plain(xyz, npoint), 1)
         b, n = xyz.shape[:2]
         add_bound(r, b * n * 12 + b * npoint * 4, 9.0 * b * n * npoint)
+        r["latency_ms"] += npoint * r["iteration_us"] * 1e-3
         r["ms"] += ms
         r["plain_ms"] += pms
         r["calls"].append(dict(shape=f"{b}x{n}->{npoint}", ms=ms, plain_ms=pms))
 
-    # NMS: ~560 FP32 operations per rotated IoU (two clipping passes of
-    # 4 edges x 4 half-planes), counted for the IoUs this data needs.
+    # NMS: NMS_OPS_PER_IOU per rotated IoU, counted for the IoUs this data
+    # needs.
     r = row("nms", "heterofusionrcnn_torch/ops/csrc/nms.cu")
     for a, kw in calls["oriented_nms"]:
         bev, scores, thresh, keep = a[:4]
@@ -198,7 +237,7 @@ def check_kernels(calls, reps):
         pms = cuda_ms(lambda: nms.oriented_nms_plain(bev, scores, thresh, keep, valid), 1)
         b, n = bev.shape[:2]
         ious = nms_iou_count(bev, scores, thresh, got, valid)
-        add_bound(r, b * n * 25 + b * keep * 4, 560.0 * ious)
+        add_bound(r, b * n * 25 + b * keep * 4, float(NMS_OPS_PER_IOU * ious))
         r["ms"] += ms
         r["plain_ms"] += pms
         r["calls"].append(dict(shape=f"{b}x{n}->{keep}@{thresh}", ms=ms, plain_ms=pms, ious=ious))
@@ -264,6 +303,7 @@ def small_width_agrees(seed):
     from heterofusionrcnn_torch.inference import build_two_stage
 
     det, inputs = build_two_stage(2, seed, "cpu", rpn_unittest(), rcnn_unittest())
+    randomize_batchnorm(det, seed)
     want = det(*inputs)
     got = det.to("cuda")(*(t.to("cuda") for t in inputs))
     ok = torch.equal(got["num_final"].cpu(), want["num_final"])
@@ -274,11 +314,7 @@ def small_width_agrees(seed):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default="outputs")
+    ap.add_argument("--out", default="outputs", help="directory for chip_smoke.json")
     args = ap.parse_args(argv)
 
     import torch
@@ -306,7 +342,8 @@ def main(argv=None) -> int:
     report["ptxas"] = {k: kern.build_log for k, kern in kernels.items()}
     print(f"built {len(kernels)} kernels in {report['build_s']:.1f} s", flush=True)
 
-    det, inputs = build_two_stage(args.batch, args.seed, "cuda")
+    det, inputs = build_two_stage(BATCH, SEED, "cuda")
+    randomize_batchnorm(det, SEED)
     calls = record_kernel_inputs(det, inputs)
     torch.cuda.synchronize()
 
@@ -322,8 +359,11 @@ def main(argv=None) -> int:
     missing = [name for name, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    recorded = {name: len(calls[op]) for name, op in KERNEL_OPS.items()}
+    if recorded != launches:
+        raise AssertionError(f"recorded kernel calls {recorded} != main-path launches {launches}")
 
-    b = args.batch
+    b = BATCH
     boxes, scores, num = out["final_boxes"], out["final_scores"], out["num_final"]
     if boxes.shape != (b, 100, 7) or scores.shape != (b, 100) or num.shape != (b,):
         raise AssertionError(f"unexpected output shapes {boxes.shape} {scores.shape} {num.shape}")
@@ -333,19 +373,19 @@ def main(argv=None) -> int:
         raise AssertionError(f"final box counts out of range: {num.tolist()}")
     report["num_final"] = num.tolist()
 
-    ms = cuda_ms(lambda: det(*inputs), args.iters)
+    ms = cuda_ms(lambda: det(*inputs), ITERS)
     report["fused_ms_per_batch"] = ms
     report["frames_per_s"] = b / ms * 1e3
     print(f"fused two-stage inference: {ms:.2f} ms per batch of {b}", flush=True)
     report["profile"] = profile_forward(det, inputs)
     report["device_busy_share"] = report["profile"]["device_busy_ms"] / ms
 
-    rows = check_kernels(calls, args.reps)
+    rows = check_kernels(calls, REPS)
     for name, r in rows.items():
         r["launches"] = launches[name]
     report["kernels"] = rows
 
-    agree, small = small_width_agrees(args.seed)
+    agree, small = small_width_agrees(SEED)
     report["small_width_agrees"] = agree
     report["small_width"] = small
     if not agree:
