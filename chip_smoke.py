@@ -4,27 +4,45 @@
     python3 chip_smoke.py [--out DIR]
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the four hand-written kernels (`heterofusionrcnn_torch/ops/csrc`,
+2. Builds the seven hand-written kernels (`heterofusionrcnn_torch/ops/csrc`,
    one nvcc per source, all at once).
 3. Drives the main path: full-width `rpn_multiclass` -> `rcnn_multiclass`
    two-stage inference (16384 points, 360x1200 images) at batch 4 with
-   random weights and BatchNorm statistics from seed 0. Every launch count
-   is set to 0 just before one forward and read just after; each of the
-   four kernels must have launched. The forward is then timed over 5
-   batches with CUDA events and profiled once (device time by kernel name,
-   device busy share).
-4. Calls each kernel's wrapper again on the exact inputs that forward gave
-   it (recorded in a separate, uncounted forward, one record per launch of
-   the counted one) and holds the result against the kernel's plain
-   PyTorch version: indices bit-exact for KNN, FPS and NMS,
-   |kernel - plain| <= 1e-4 + 1e-4 |plain| for the fused XConv. Times the
-   kernel, the plain version and, where one PyTorch call computes the same
-   function, that call (`library_ms`, a yardstick the port never calls);
-   computes each kernel's bound from its inputs, and FPS's latency floor
-   (npoint times the per-iteration time of the FPS kernel on 1024 points,
-   one a thread) for the report file.
-5. Checks the outputs: finite, expected shapes, sane counts, and the same
+   random weights and BatchNorm statistics from seed 0, kernel switches
+   off (the JAX package's default path). Every launch count is set to 0
+   just before one forward and read just after; each of its four kernels
+   (KNN, FPS, NMS, fused XConv) must have launched. The forward is then
+   timed over 5 batches with CUDA events and profiled once (device time by
+   kernel name, device busy share).
+4. Drives the same detector (same weights, same inputs) with both switches
+   on, counted the same way: per forward 13 fused 3x3 convs and 3 fused
+   transposed convs (one VGG pass, the map is shared) and 1 crop gather,
+   besides the four kernels of step 3. Times it against the switches-off
+   forward in turns (off, on, on, off).
+5. Calls each kernel's wrapper again on the exact inputs those forwards
+   gave it (recorded in separate, uncounted forwards, one record per launch
+   of the counted ones) and holds the result against the kernel's plain
+   PyTorch version: indices bit-exact for KNN, FPS and NMS, the crop gather
+   bit-exact, |kernel - plain| <= 1e-4 + 1e-4 |plain| for the fused XConv
+   and the two convs. Times the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call (`library_ms`, a
+   yardstick the port never calls: cdist + topk, cuDNN conv2d /
+   conv_transpose2d with TF32 off, index_select); computes each kernel's
+   bound from its inputs, and FPS's latency floor (npoint times the
+   per-iteration time of the FPS kernel on 1024 points, one a thread) for
+   the report file.
+6. Checks the outputs: finite, expected shapes, sane counts, and the same
    detector at small width on the card agreeing with its CPU run.
+7. The KITTI entry point: saves seed-0 random weights (random BatchNorm
+   statistics) as port checkpoints in a temporary directory under --out,
+   runs
+   `python -m heterofusionrcnn_torch.experiments.run_inference` in process
+   with `--conv_kernels --crop_kernel --kitti_eval` on tests/fixtures/kitti,
+   split val, full width, and checks one prediction file of finite rows per
+   frame, 26 convs, 6 transposed convs and 1 crop launched on every frame
+   (the RCNN runs its own VGG pass, the CLI's default), each of those
+   calls held against its plain version as in step 5, and the evaluator's
+   AP lines.
 
 Prints a {"kernels": [...]} JSON line, then the result as its last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -35,15 +53,20 @@ to --out (default outputs/) as chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM FP32 outside the tensor cores
 XCONV_RTOL = XCONV_ATOL = 1e-4
+CONV_RTOL = CONV_ATOL = 1e-4
 BATCH = 4                      # frames per forward on the main path
 SEED = 0                       # weights, BatchNorm statistics and inputs
 ITERS = 5                      # forwards timed
@@ -58,11 +81,21 @@ TPU_KERNELS = {
     "fps": "heterofusionrcnn_tpu/ops/pallas_fps.py:116 (farthest_point_sample_pallas)",
     "nms": "heterofusionrcnn_tpu/ops/pallas_nms.py:138 (oriented_nms_pallas)",
     "xconv": "heterofusionrcnn_tpu/ops/pallas_xconv.py:263 (fused_xconv)",
+    "crop": "heterofusionrcnn_tpu/ops/pallas_crop.py:122 (crop_gather)",
+    "conv": "heterofusionrcnn_tpu/ops/pallas_conv.py:157 (conv3x3_affine_relu)",
+    "convt": "heterofusionrcnn_tpu/ops/pallas_convtranspose.py:86 (convtranspose3x3_affine_relu)",
 }
 # The op each kernel's wrapper is reached through on the main path; each
 # call of it launches the kernel once.
 KERNEL_OPS = {"knn": "knn_point", "fps": "farthest_point_sample",
-              "nms": "oriented_nms", "xconv": "fused_xconv"}
+              "nms": "oriented_nms", "xconv": "fused_xconv", "crop": "crop_gather",
+              "conv": "conv3x3_affine_relu", "convt": "convtranspose3x3_affine_relu"}
+SLICE1 = ("knn", "fps", "nms", "xconv")
+# Launches of the switch-controlled kernels per batch-4 forward with the
+# switches on (one shared VGG pass) and per KITTI frame (two VGG passes).
+SWITCHED_PER_FORWARD = {"conv": 13, "convt": 3, "crop": 1}
+SWITCHED_PER_FRAME = {"conv": 26, "convt": 6, "crop": 1}
+KITTI_DIR = os.path.join(ROOT, "tests", "fixtures", "kitti")
 
 
 def card_line() -> str:
@@ -118,26 +151,57 @@ def randomize_batchnorm(module, seed):
     return module
 
 
+@contextlib.contextmanager
+def recording(ops=tuple(KERNEL_OPS.values())):
+    """Wraps the kernel ops named in `ops` where the models call them;
+    yields {op: [(args, kwargs), ...]}, one record per call."""
+    from heterofusionrcnn_torch.models.extractors import layers, pointcnn
+    from heterofusionrcnn_torch.ops import cropping, nms
+
+    where = {"knn_point": pointcnn, "farthest_point_sample": pointcnn,
+             "fused_xconv": pointcnn, "oriented_nms": nms, "crop_gather": cropping,
+             "conv3x3_affine_relu": layers, "convtranspose3x3_affine_relu": layers}
+    recs = {op: Recorder(getattr(where[op], op)) for op in ops}
+    for op, rec in recs.items():
+        setattr(where[op], op, rec)
+    try:
+        yield {op: rec.calls for op, rec in recs.items()}
+    finally:
+        for op, rec in recs.items():
+            setattr(where[op], op, rec.fn)
+
+
 def record_kernel_inputs(det, inputs):
     """One uncounted forward with the kernel ops wrapped, so the checks run
     on the inputs the main path gives each kernel."""
-    from heterofusionrcnn_torch.models.extractors import pointcnn
-    from heterofusionrcnn_torch.ops import nms
-
-    patches = {
-        (pointcnn, "knn_point"): Recorder(pointcnn.knn_point),
-        (pointcnn, "farthest_point_sample"): Recorder(pointcnn.farthest_point_sample),
-        (pointcnn, "fused_xconv"): Recorder(pointcnn.fused_xconv),
-        (nms, "oriented_nms"): Recorder(nms.oriented_nms),
-    }
-    for (mod, name), rec in patches.items():
-        setattr(mod, name, rec)
-    try:
+    with recording() as calls:
         det(*inputs)
-    finally:
-        for (mod, name), rec in patches.items():
-            setattr(mod, name, rec.fn)
-    return {name: rec.calls for (_, name), rec in patches.items()}
+    return calls
+
+
+def check_switched(name, args, kwargs):
+    """One switched kernel's call against its plain version: the convs
+    within CONV_ATOL + CONV_RTOL |plain|, the crop bit for bit. Returns
+    the max |kernel - plain|."""
+    import torch
+
+    from heterofusionrcnn_torch.ops import conv, cropping
+
+    kernel, plain = {
+        "conv": (conv.conv3x3_affine_relu, conv.conv3x3_affine_relu_plain),
+        "convt": (conv.convtranspose3x3_affine_relu, conv.convtranspose3x3_affine_relu_plain),
+        "crop": (cropping.crop_gather, cropping.crop_gather_plain),
+    }[name]
+    got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+    shape = tuple(args[0].shape)
+    if name == "crop":
+        if not torch.equal(got, want):
+            raise AssertionError(f"crop gather differs at {shape} {tuple(args[1].shape)}")
+        return 0.0
+    err = (got - want).abs()
+    if not bool((err <= CONV_ATOL + CONV_RTOL * want.abs()).all()):
+        raise AssertionError(f"{name} differs by {float(err.max())} at {shape}")
+    return float(err.max())
 
 
 def nms_iou_count(boxes, scores, thresh, keep, valid):
@@ -161,12 +225,14 @@ def nms_iou_count(boxes, scores, thresh, keep, valid):
     return total
 
 
-def check_kernels(calls, reps):
-    """Kernel vs plain on every recorded call; times and bounds summed over
-    the calls of one forward."""
+def check_kernels(calls, calls_on, reps):
+    """Kernel vs plain on every recorded call (`calls`: the switches-off
+    forward, `calls_on`: the switched kernels of the switches-on forward);
+    times and bounds summed over the calls of one forward."""
     import torch
+    import torch.nn.functional as F
 
-    from heterofusionrcnn_torch.ops import grouping, nms, sampling, xconv
+    from heterofusionrcnn_torch.ops import conv, cropping, grouping, nms, sampling, xconv
 
     rows = {}
 
@@ -269,6 +335,57 @@ def check_kernels(calls, reps):
         r["plain_ms"] += pms
         r["calls"].append(dict(shape=f"{b}x{p} K{k} Cf{cf} Cin{cin} D{d}", ms=ms, plain_ms=pms))
 
+    # Fused 3x3 conv and transposed conv: 2 * 9 * Cin * Cout FP32 operations
+    # per (input) pixel; bytes of the input, the weights, scale and shift,
+    # and the output. The library call is the convolution alone (cuDNN,
+    # TF32 off).
+    convs = (
+        ("conv", "conv.cu", conv.conv3x3_affine_relu, conv.conv3x3_affine_relu_plain,
+         lambda x, w: F.conv2d(x, w, padding=1), 1),
+        ("convt", "convt.cu", conv.convtranspose3x3_affine_relu,
+         conv.convtranspose3x3_affine_relu_plain,
+         lambda x, w: F.conv_transpose2d(x, w, stride=2), 4),
+    )
+    for name, src, fn, plain, library, up in convs:
+        r = row(name, f"heterofusionrcnn_torch/ops/csrc/{src}")
+        r["library_ms"] = 0.0
+        for (x, w, sc, sh), kw in calls_on[KERNEL_OPS[name]]:
+            r["max_abs_err"] = max(r["max_abs_err"], check_switched(name, (x, w, sc, sh), kw))
+            ms = cuda_ms(lambda: fn(x, w, sc, sh, **kw), reps)
+            pms = cuda_ms(lambda: plain(x, w, sc, sh, **kw), reps)
+            lms = cuda_ms(lambda: library(x, w), reps)
+            b, cin, h, wd = x.shape
+            cout = sc.shape[0]
+            nbytes = 4 * (x.numel() + w.numel() + 2 * cout + up * b * cout * h * wd)
+            add_bound(r, nbytes, 2.0 * 9 * cin * cout * b * h * wd)
+            r["ms"] += ms
+            r["plain_ms"] += pms
+            r["library_ms"] += lms
+            r["calls"].append(dict(shape=f"{b}x{cin}x{h}x{wd}->{cout}", ms=ms, plain_ms=pms,
+                                   library_ms=lms))
+
+    # Crop gather: a copy, bytes only (each distinct gathered row read once,
+    # each output row written once, plus the indices).
+    r = row("crop", "heterofusionrcnn_torch/ops/csrc/crop.cu")
+    r["library_ms"] = 0.0
+    for (src, idx, box_ind), kw in calls_on[KERNEL_OPS["crop"]]:
+        check_switched("crop", (src, idx, box_ind), kw)
+        ms = cuda_ms(lambda: cropping.crop_gather(src, idx, box_ind), reps)
+        pms = cuda_ms(lambda: cropping.crop_gather_plain(src, idx, box_ind), reps)
+        b, n, c = src.shape
+        nb, rr = idx.shape
+        flat = src.reshape(b * n, c)
+        rows_idx = (box_ind.long()[:, None] * n + idx.long()).reshape(-1)
+        lms = cuda_ms(lambda: torch.index_select(flat, 0, rows_idx), reps)
+        # Source rows read once each: the distinct rows this data gathers.
+        distinct = int(torch.unique(rows_idx).numel())
+        add_bound(r, 4 * (distinct + nb * rr) * c + 4 * (idx.numel() + nb), 0.0)
+        r["ms"] += ms
+        r["plain_ms"] += pms
+        r["library_ms"] += lms
+        r["calls"].append(dict(shape=f"{b}x{n}x{c} -> {nb}x{rr}", ms=ms, plain_ms=pms,
+                               library_ms=lms))
+
     for r in rows.values():
         r["bound_by"] = "bytes" if r.pop("_bytes_ms") > r.pop("_ops_ms") else "operations"
     return rows
@@ -294,22 +411,129 @@ def profile_forward(det, inputs, top: int = 15):
     }
 
 
-def small_width_agrees(seed):
+def small_width_agrees(seed, switches: bool):
     """The detector at `*_unittest` width: card run vs CPU run (plain
-    versions) with the same weights and inputs."""
+    versions) with the same weights and inputs; `switches` turns both
+    kernel switches on."""
     import torch
 
     from heterofusionrcnn_torch.configs.presets import rcnn_unittest, rpn_unittest
     from heterofusionrcnn_torch.inference import build_two_stage
 
-    det, inputs = build_two_stage(2, seed, "cpu", rpn_unittest(), rcnn_unittest())
+    det, inputs = build_two_stage(2, seed, "cpu", rpn_unittest(), rcnn_unittest(),
+                                  conv_kernels=switches, crop_kernel=switches)
     randomize_batchnorm(det, seed)
     want = det(*inputs)
     got = det.to("cuda")(*(t.to("cuda") for t in inputs))
     ok = torch.equal(got["num_final"].cpu(), want["num_final"])
     for key in ("final_boxes", "final_scores"):
         ok = ok and torch.allclose(got[key].cpu(), want[key], rtol=1e-3, atol=1e-3)
-    return bool(ok), {k: v.cpu().tolist() for k, v in got.items() if k == "num_final"}
+    return bool(ok), got["num_final"].cpu().tolist()
+
+
+def counted_forward(det, inputs, kernels):
+    """One forward between zeroing every launch count and reading it."""
+    import torch
+
+    for kern in kernels.values():
+        kern.launches = 0
+    out = det(*inputs)
+    torch.cuda.synchronize()
+    return out, {name: kern.launches for name, kern in kernels.items()}
+
+
+def check_outputs(out, b):
+    import torch
+
+    boxes, scores, num = out["final_boxes"], out["final_scores"], out["num_final"]
+    if boxes.shape != (b, 100, 7) or scores.shape != (b, 100) or num.shape != (b,):
+        raise AssertionError(f"unexpected output shapes {boxes.shape} {scores.shape} {num.shape}")
+    if out["final_classes"].shape != (b, 100) or out["proposals"].shape != (b, 100, 7):
+        raise AssertionError("unexpected class or proposal shapes")
+    if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+        raise AssertionError("non-finite outputs")
+    if not bool(((num >= 1) & (num <= 100)).all()):
+        raise AssertionError(f"final box counts out of range: {num.tolist()}")
+    return num.tolist()
+
+
+def kitti_phase(kernels, out_root):
+    """The KITTI inference CLI on the fixture frames with both switches on:
+    one prediction file of finite rows per frame, the switched kernels
+    launched on every frame and held against their plain versions on every
+    frame's inputs, AP lines from the evaluator. The weights are
+    saved as port checkpoints in a temporary directory under `out_root`,
+    removed afterwards."""
+    os.makedirs(out_root, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="checkpoints-", dir=out_root)
+    try:
+        return _kitti_run(kernels, out_root, ckpt)
+    finally:
+        shutil.rmtree(ckpt)
+
+
+def _kitti_run(kernels, out_root, ckpt):
+    import numpy as np
+    import torch
+
+    from heterofusionrcnn_torch.experiments import common, run_inference
+    from heterofusionrcnn_torch.inference import TwoStageDetector
+    from heterofusionrcnn_torch.models.extractors.layers import init_weights
+    from heterofusionrcnn_torch.runtime.checkpoint import CheckpointManager
+
+    rpn_cfg = common.resolve_config("rpn_multiclass", KITTI_DIR)
+    rcnn_cfg = common.resolve_config("rcnn_multiclass", KITTI_DIR)
+    det = common.build_model(rpn_cfg, rcnn_cfg, common.build_dataset(rpn_cfg, "test", "val"))
+    randomize_batchnorm(init_weights(det, SEED), SEED)
+    CheckpointManager(os.path.join(ckpt, "rpn")).save(0, det.rpn)
+    CheckpointManager(os.path.join(ckpt, "rcnn")).save(0, det.rcnn)
+
+    per_frame = []
+    forward = TwoStageDetector.forward
+
+    def counted(self, *inputs):
+        out, launches = counted_forward(lambda *a: forward(self, *a), inputs, kernels)
+        per_frame.append(launches)
+        return out
+
+    TwoStageDetector.forward = counted
+    switched = {k: KERNEL_OPS[k] for k in SWITCHED_PER_FRAME}
+    try:
+        with recording(tuple(switched.values())) as calls:
+            result = run_inference.main([
+                "--rpn_config", "rpn_multiclass", "--rcnn_config", "rcnn_multiclass",
+                "--rpn_checkpoint", os.path.join(ckpt, "rpn"),
+                "--rcnn_checkpoint", os.path.join(ckpt, "rcnn"),
+                "--dataset_dir", KITTI_DIR, "--data_split", "val",
+                "--output_root", os.path.join(out_root, "predictions"),
+                "--conv_kernels", "--crop_kernel", "--kitti_eval",
+            ])
+    finally:
+        TwoStageDetector.forward = forward
+    frames = result["frames"]
+    if not frames or len(per_frame) != len(frames):
+        raise AssertionError(f"{len(per_frame)} forwards for frames {frames}")
+    for name, launches in zip(frames, per_frame):
+        got = {k: launches[k] for k in SWITCHED_PER_FRAME}
+        if got != SWITCHED_PER_FRAME or not all(launches[k] for k in SLICE1):
+            raise AssertionError(f"frame {name}: launches {launches}")
+        rows = np.loadtxt(os.path.join(result["out_dir"], name + ".txt")).reshape(-1, 9)
+        if not np.isfinite(rows).all():
+            raise AssertionError(f"frame {name}: non-finite rows")
+    if sorted(os.listdir(result["out_dir"])) != sorted(f + ".txt" for f in frames):
+        raise AssertionError("prediction files do not match the loaded frames")
+    if len(result.get("aps", {})) != 12:
+        raise AssertionError(f"evaluator AP lines missing: {result.get('aps')}")
+    # Every switched kernel's call of every frame against its plain version.
+    result["max_abs_err"] = {}
+    for name, op in switched.items():
+        if len(calls[op]) != SWITCHED_PER_FRAME[name] * len(frames):
+            raise AssertionError(f"{name}: {len(calls[op])} recorded calls over {len(frames)} frames")
+        result["max_abs_err"][name] = max(check_switched(name, a, kw) for a, kw in calls[op])
+    del calls
+    result["launches_per_frame"] = per_frame
+    print("KITTI frames ms: " + " ".join(f"{t:.2f}" for t in result["frame_ms"]), flush=True)
+    return result
 
 
 def main(argv=None) -> int:
@@ -323,10 +547,10 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     torch.set_grad_enabled(False)
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     try:
         from heterofusionrcnn_torch.inference import build_two_stage
-        from heterofusionrcnn_torch.ops import dispatch, grouping, nms, sampling, xconv
+        from heterofusionrcnn_torch.ops import conv, cropping, dispatch, grouping, nms, sampling, xconv
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 2
@@ -335,43 +559,34 @@ def main(argv=None) -> int:
     print(report["card"], flush=True)
 
     kernels = {"knn": grouping.KNN_KERNEL, "fps": sampling.FPS_KERNEL,
-               "nms": nms.NMS_KERNEL, "xconv": xconv.XCONV_KERNEL}
+               "nms": nms.NMS_KERNEL, "xconv": xconv.XCONV_KERNEL,
+               "crop": cropping.CROP_KERNEL, "conv": conv.CONV_KERNEL,
+               "convt": conv.CONVT_KERNEL}
     t0 = time.perf_counter()
     dispatch.build_all(kernels.values())
     report["build_s"] = time.perf_counter() - t0
     report["ptxas"] = {k: kern.build_log for k, kern in kernels.items()}
     print(f"built {len(kernels)} kernels in {report['build_s']:.1f} s", flush=True)
 
+    b = BATCH
     det, inputs = build_two_stage(BATCH, SEED, "cuda")
     randomize_batchnorm(det, SEED)
     calls = record_kernel_inputs(det, inputs)
     torch.cuda.synchronize()
 
-    # The main path, counted: one forward between zeroing and reading.
-    for kern in kernels.values():
-        kern.launches = 0
+    # The main path, switches off, counted: one forward between zeroing and
+    # reading.
     torch.cuda.reset_peak_memory_stats()
-    out = det(*inputs)
-    torch.cuda.synchronize()
-    launches = {name: kern.launches for name, kern in kernels.items()}
+    out, launches = counted_forward(det, inputs, kernels)
     report["launches_per_forward"] = launches
     report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    missing = [name for name, n in launches.items() if n == 0]
+    missing = [name for name in SLICE1 if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    recorded = {name: len(calls[op]) for name, op in KERNEL_OPS.items()}
+    recorded = {name: len(calls[KERNEL_OPS[name]]) for name in kernels}
     if recorded != launches:
         raise AssertionError(f"recorded kernel calls {recorded} != main-path launches {launches}")
-
-    b = BATCH
-    boxes, scores, num = out["final_boxes"], out["final_scores"], out["num_final"]
-    if boxes.shape != (b, 100, 7) or scores.shape != (b, 100) or num.shape != (b,):
-        raise AssertionError(f"unexpected output shapes {boxes.shape} {scores.shape} {num.shape}")
-    if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
-        raise AssertionError("non-finite outputs")
-    if not bool(((num >= 1) & (num <= 100)).all()):
-        raise AssertionError(f"final box counts out of range: {num.tolist()}")
-    report["num_final"] = num.tolist()
+    report["num_final"] = check_outputs(out, b)
 
     ms = cuda_ms(lambda: det(*inputs), ITERS)
     report["fused_ms_per_batch"] = ms
@@ -380,16 +595,46 @@ def main(argv=None) -> int:
     report["profile"] = profile_forward(det, inputs)
     report["device_busy_share"] = report["profile"]["device_busy_ms"] / ms
 
-    rows = check_kernels(calls, REPS)
+    # The same detector and inputs with both kernel switches on.
+    det_on, inputs_on = build_two_stage(BATCH, SEED, "cuda", conv_kernels=True, crop_kernel=True)
+    randomize_batchnorm(det_on, SEED)
+    sd, sd_on = det.state_dict(), det_on.state_dict()
+    if sd.keys() != sd_on.keys() or not all(torch.equal(sd[k], sd_on[k]) for k in sd):
+        raise AssertionError("the switches-on detector has other weights")
+    if not all(torch.equal(a, c) for a, c in zip(inputs, inputs_on)):
+        raise AssertionError("the switches-on detector has other inputs")
+    calls_on = record_kernel_inputs(det_on, inputs)
+    torch.cuda.synchronize()
+    out_on, launches_on = counted_forward(det_on, inputs, kernels)
+    report["launches_per_forward_switches_on"] = launches_on
+    want_on = dict(SWITCHED_PER_FORWARD, **{k: launches[k] for k in SLICE1})
+    if launches_on != want_on:
+        raise AssertionError(f"switches-on launches {launches_on} != {want_on}")
+    recorded_on = {name: len(calls_on[KERNEL_OPS[name]]) for name in kernels}
+    if recorded_on != launches_on:
+        raise AssertionError(f"recorded calls {recorded_on} != switches-on launches {launches_on}")
+    report["num_final_switches_on"] = check_outputs(out_on, b)
+    ab = [cuda_ms(lambda: d(*inputs), ITERS) for d in (det, det_on, det_on, det)]
+    report["ab_ms_off_on_on_off"] = ab
+    print(f"switches off / on: {(ab[0] + ab[3]) / 2:.2f} / {(ab[1] + ab[2]) / 2:.2f} ms "
+          f"per batch of {b}", flush=True)
+    report["profile_switches_on"] = profile_forward(det_on, inputs)
+    del det_on, out_on
+
+    rows = check_kernels(calls, calls_on, REPS)
+    del calls, calls_on
     for name, r in rows.items():
-        r["launches"] = launches[name]
+        r["launches"] = launches[name] if name in SLICE1 else launches_on[name]
     report["kernels"] = rows
 
-    agree, small = small_width_agrees(SEED)
-    report["small_width_agrees"] = agree
-    report["small_width"] = small
-    if not agree:
-        raise AssertionError("small-width card run disagrees with the CPU run")
+    for switches in (False, True):
+        agree, small = small_width_agrees(SEED, switches)
+        report[f"small_width_agrees_switches_{'on' if switches else 'off'}"] = [agree, small]
+        if not agree:
+            raise AssertionError(f"small-width card run disagrees with the CPU run "
+                                 f"(switches {'on' if switches else 'off'})")
+
+    report["kitti"] = kitti_phase(kernels, os.path.join(args.out, "chip_smoke_kitti"))
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -5,7 +5,11 @@ Mirrors the fused function that `bench.py` builds (`build_stages` ->
 RCNN on the 100 proposals per frame, reusing the stage-1 image feature map
 (one VGG pass per frame) when the RCNN config asks for it
 (`rcnn_use_rpn_img_feature_map`). Runs on the card unless the caller
-passes `device="cpu"`.
+passes `device="cpu"`. Two switches, both off by default as their JAX
+counterparts are: `conv_kernels` (the VGG convs through the fused kernels
+of `ops/conv.py`, JAX's `HFR_PALLAS_CONV=1`) and `crop_kernel` (the RCNN
+point crop's feature gather through `ops/cropping.crop_gather`, JAX's
+`HFR_PALLAS_CROP=1`).
 """
 
 from __future__ import annotations
@@ -35,22 +39,31 @@ def exact_float32() -> None:
 
 
 class TwoStageDetector(nn.Module):
-    """RPN + RCNN in test mode."""
+    """RPN + RCNN in test mode. `cluster_sizes` are the dataset's class mean
+    sizes (`experiments.common.cluster_sizes_tuple`), `bev_z_max` its far
+    BEV extent."""
 
     def __init__(self, rpn_cfg: PipelineConfig, rcnn_cfg: PipelineConfig,
-                 cluster_sizes: Sequence[Tuple[float, float, float]] = CLUSTER_SIZES):
+                 cluster_sizes: Sequence[Tuple[float, float, float]] = CLUSTER_SIZES,
+                 conv_kernels: bool = False, crop_kernel: bool = False,
+                 bev_z_max: float = 70.0):
         super().__init__()
-        self.rpn = RpnModel(rpn_cfg.model_config, len(cluster_sizes), cluster_sizes)
+        self.rpn = RpnModel(rpn_cfg.model_config, len(cluster_sizes), cluster_sizes,
+                            conv_kernels=conv_kernels)
         lc = rpn_cfg.model_config.layers_config
         fts_channels = self.rpn.pc_pointcnn.out_channels + lc.img_vgg_pyr.vgg_conv1[1]
         self.rcnn = RcnnModel(rcnn_cfg.model_config, len(cluster_sizes), cluster_sizes,
-                              fts_channels)
+                              fts_channels, bev_z_max=bev_z_max,
+                              conv_kernels=conv_kernels, crop_kernel=crop_kernel)
         self.shared_vgg = rcnn_cfg.model_config.rcnn_config.rcnn_use_rpn_img_feature_map
 
     @torch.no_grad()
     def forward(self, pc: torch.Tensor, img: torch.Tensor, p2: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """pc (B, P, 4), img (B, H, W, 3), p2 (B, 3, 4) ->
-        final_boxes (B, 100, 7), final_scores (B, 100), num_final (B,)."""
+        """pc (B, P, 4), img (B, H, W, 3), p2 (B, 3, 4) -> the dict of the JAX
+        package's fused function (`experiments/run_inference.py`):
+        proposals (B, n, 7), proposal_scores (B, n), final_boxes (B, m, 7),
+        final_scores (B, m), final_classes (B, m) (0-based class index),
+        final_valid (B, m), num_final (B,)."""
         rpn_out = self.rpn(pc, img, p2)
         fts = torch.cat([rpn_out["rpn_fts"], rpn_out["rpn_img_fts"]], dim=-1)
         rcnn_out = self.rcnn(
@@ -64,8 +77,12 @@ class TwoStageDetector(nn.Module):
             img_feature_map=rpn_out["img_feature_map"] if self.shared_vgg else None,
         )
         return {
+            "proposals": rpn_out["proposals"],
+            "proposal_scores": rpn_out["proposal_scores"],
             "final_boxes": rcnn_out["final_boxes"],
             "final_scores": rcnn_out["final_scores"],
+            "final_classes": rcnn_out["final_classes"],
+            "final_valid": rcnn_out["final_valid"],
             "num_final": rcnn_out["num_boxes_before_padding"],
         }
 
@@ -99,6 +116,8 @@ def build_two_stage(
     device: str = "cuda",
     rpn_cfg: Optional[PipelineConfig] = None,
     rcnn_cfg: Optional[PipelineConfig] = None,
+    conv_kernels: bool = False,
+    crop_kernel: bool = False,
 ):
     """The full-width `rpn_multiclass` / `rcnn_multiclass` detector with
     random weights from `seed`, in eval mode on `device`, and a synthetic
@@ -109,7 +128,8 @@ def build_two_stage(
     rpn_cfg = rpn_cfg or rpn_multiclass()
     rcnn_cfg = rcnn_cfg or rcnn_multiclass()
     rcnn_cfg.model_config.rcnn_config.rcnn_use_rpn_img_feature_map = True
-    det = init_weights(TwoStageDetector(rpn_cfg, rcnn_cfg), seed).to(device).eval()
+    det = TwoStageDetector(rpn_cfg, rcnn_cfg, conv_kernels=conv_kernels, crop_kernel=crop_kernel)
+    det = init_weights(det, seed).to(device).eval()
     batch = random_batch(rpn_cfg, batch_size, seed)
     inputs = tuple(
         torch.from_numpy(batch[k]).to(device)

@@ -5,6 +5,8 @@ heterofusionrcnn_tpu/models/extractors/img_vgg_pyr.py).
 transposed-conv decoder with skip concatenations back to full resolution
 (vgg_conv1 filters). `ImgVgg`: the encoder plus bilinear upsampling. Both
 take and return NHWC like the JAX modules and run NCHW inside.
+`conv_kernels=True` runs every 3x3 conv and transposed conv block through
+the fused kernels of `ops/conv.py` in eval mode.
 """
 
 from __future__ import annotations
@@ -38,13 +40,15 @@ def _maybe_downsample(x: torch.Tensor, ds: int) -> torch.Tensor:
 
 
 class _Blocks(nn.Module):
-    def __init__(self, config: ImgVggPyrConfig, in_channels: int = 3):
+    def __init__(self, config: ImgVggPyrConfig, in_channels: int = 3,
+                 conv_kernels: bool = False):
         super().__init__()
         self.config = config
         c = in_channels
         for name, (repeats, filters) in self._specs():
             for i in range(repeats):
-                self.add_module(f"{name}_{i + 1}", ConvBNRelu(c, filters))
+                self.add_module(f"{name}_{i + 1}",
+                                ConvBNRelu(c, filters, conv_kernel=conv_kernels))
                 c = filters
 
     def _specs(self):
@@ -76,16 +80,18 @@ class ImgVgg(_Blocks):
 class ImgVggPyr(_Blocks):
     """U-Net-shaped VGG: (B, H, W, 3) -> (B, H, W, vgg_conv1 filters)."""
 
-    def __init__(self, config: ImgVggPyrConfig, in_channels: int = 3):
-        super().__init__(config, in_channels)
+    def __init__(self, config: ImgVggPyrConfig, in_channels: int = 3,
+                 conv_kernels: bool = False):
+        super().__init__(config, in_channels, conv_kernels)
         c1, c2, c3, c4 = (config.vgg_conv1[1], config.vgg_conv2[1],
                           config.vgg_conv3[1], config.vgg_conv4[1])
-        self.upconv3 = ConvTransposeBNRelu(c4, c3)
-        self.pyramid_fusion3 = ConvBNRelu(c3 + c3, c2)
-        self.upconv2 = ConvTransposeBNRelu(c2, c2)
-        self.pyramid_fusion2 = ConvBNRelu(c2 + c2, c1)
-        self.upconv1 = ConvTransposeBNRelu(c1, c1)
-        self.pyramid_fusion1 = ConvBNRelu(c1 + c1, c1)
+        k = dict(conv_kernel=conv_kernels)
+        self.upconv3 = ConvTransposeBNRelu(c4, c3, **k)
+        self.pyramid_fusion3 = ConvBNRelu(c3 + c3, c2, **k)
+        self.upconv2 = ConvTransposeBNRelu(c2, c2, **k)
+        self.pyramid_fusion2 = ConvBNRelu(c2 + c2, c1, **k)
+        self.upconv1 = ConvTransposeBNRelu(c1, c1, **k)
+        self.pyramid_fusion1 = ConvBNRelu(c1 + c1, c1, **k)
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         x = _maybe_downsample(image.permute(0, 3, 1, 2), self.config.downsample)

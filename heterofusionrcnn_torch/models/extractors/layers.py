@@ -6,7 +6,11 @@ Submodule and parameter names follow the flax param tree (`Dense_0`,
 checkpoints by path. The pointfly convention is linear -> activation ->
 BatchNorm, BN with flax momentum 0.99 (torch 0.01) and epsilon 1e-3.
 Point layers work on channels-last (..., C) tensors; the image layers on
-NCHW, their callers convert from the NHWC of the public API.
+NCHW, their callers convert from the NHWC of the public API. With
+`conv_kernel=True` the image layers run, in eval mode, as one fused
+conv + folded-BN + ReLU call (`ops/conv.py`), the port's counterpart of the
+JAX package's `HFR_PALLAS_CONV=1`; off, they run the cuDNN / CPU conv and
+BatchNorm, the JAX package's default path.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from heterofusionrcnn_torch.ops.conv import conv3x3_affine_relu, convtranspose3x3_affine_relu
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01
@@ -123,15 +129,31 @@ class SeparableConvOverK(nn.Module):
         return out
 
 
+def fold_bn_affine(conv: nn.Module, bn: nn.BatchNorm2d):
+    """Inference BatchNorm (epsilon 1e-3) and the conv bias folded into a
+    per-channel (scale, shift): bn(conv(x)) = conv_nobias(x) * scale + shift
+    (the JAX package's `layers._fold_bn_affine`)."""
+    s = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
+    t = bn.bias - bn.running_mean * s
+    if conv.bias is not None:
+        t = t + conv.bias * s
+    return s, t
+
+
 class ConvBNRelu(nn.Module):
     """3x3 SAME conv (with bias) + BN + ReLU on NCHW."""
 
-    def __init__(self, in_channels: int, features: int, kernel: int = 3):
+    def __init__(self, in_channels: int, features: int, kernel: int = 3,
+                 conv_kernel: bool = False):
         super().__init__()
         self.Conv_0 = nn.Conv2d(in_channels, features, kernel, padding=kernel // 2)
         self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.conv_kernel = conv_kernel and kernel == 3
 
     def forward(self, x):
+        if self.conv_kernel and not self.training:
+            s, t = fold_bn_affine(self.Conv_0, self.BatchNorm_0)
+            return conv3x3_affine_relu(x, self.Conv_0.weight, s, t)
         return F.relu(self.BatchNorm_0(self.Conv_0(x)))
 
 
@@ -145,12 +167,17 @@ class ConvTransposeBNRelu(nn.Module):
     axes (the converter flips it), runs with padding 0 (output 2H + 1) and
     the last row and column are cropped."""
 
-    def __init__(self, in_channels: int, features: int, kernel: int = 3):
+    def __init__(self, in_channels: int, features: int, kernel: int = 3,
+                 conv_kernel: bool = False):
         super().__init__()
         self.ConvTranspose_0 = nn.ConvTranspose2d(in_channels, features, kernel, stride=2)
         self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.conv_kernel = conv_kernel and kernel == 3
 
     def forward(self, x):
+        if self.conv_kernel and not self.training:
+            s, t = fold_bn_affine(self.ConvTranspose_0, self.BatchNorm_0)
+            return convtranspose3x3_affine_relu(x, self.ConvTranspose_0.weight, s, t)
         h, w = x.shape[2], x.shape[3]
         y = self.ConvTranspose_0(x)[:, :, : 2 * h, : 2 * w]
         return F.relu(self.BatchNorm_0(y))

@@ -50,9 +50,13 @@ class RcnnModel(nn.Module):
 
     def __init__(self, config: ModelConfig, num_classes: int,
                  cluster_sizes: Sequence[Tuple[float, float, float]],
-                 rpn_fts_channels: int, bev_z_max: float = 70.0):
+                 rpn_fts_channels: int, bev_z_max: float = 70.0,
+                 conv_kernels: bool = False, crop_kernel: bool = False):
         """`rpn_fts_channels`: width of the stage-1 per-point features the
-        RCNN crops (point features + gathered image features)."""
+        RCNN crops (point features + gathered image features).
+        `conv_kernels`: the image branch's 3x3 convs through the fused
+        kernels of `ops/conv.py` (eval mode); `crop_kernel`: the point crop's
+        feature rows through `ops/cropping.crop_gather`."""
         super().__init__()
         lc = config.layers_config
         rc = config.rcnn_config
@@ -69,7 +73,8 @@ class RcnnModel(nn.Module):
         _, _, nbx, nbz, _, _, nbt = self.bins
         k = num_classes
         img_cls = ImgVgg if lc.img_extractor_type == "vgg" else ImgVggPyr
-        self.img_vgg_pyr = img_cls(lc.img_vgg_pyr)
+        self.img_vgg_pyr = img_cls(lc.img_vgg_pyr, conv_kernels=conv_kernels)
+        self.crop_kernel = crop_kernel
         c_img = lc.img_vgg_pyr.vgg_conv1[1] if img_cls is ImgVggPyr else lc.img_vgg_pyr.vgg_conv4[1]
 
         c = 6 if rc.rcnn_use_intensity_feature else 5
@@ -132,6 +137,7 @@ class RcnnModel(nn.Module):
         crop_pts, crop_fts, crop_int, crop_mask, _, non_empty = pc_crop_and_sample(
             rpn_pts, rpn_fts, rpn_intensity[..., None], rpn_fg_mask,
             box_3d_to_corners(expanded), box_ind, rc.rcnn_proposal_roi_crop_size,
+            crop_kernel=self.crop_kernel,
         )
 
         crop_pts_ct = canonical_transform(crop_pts, flat_proposals)

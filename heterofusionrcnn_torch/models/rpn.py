@@ -88,7 +88,9 @@ class RpnModel(nn.Module):
 
     def __init__(self, config: ModelConfig, num_classes: int,
                  cluster_sizes: Sequence[Tuple[float, float, float]],
-                 save_rpn_feature: bool = True):
+                 save_rpn_feature: bool = True, conv_kernels: bool = False):
+        """`conv_kernels`: run the image branch's 3x3 convs through the fused
+        kernels of `ops/conv.py` (eval mode)."""
         super().__init__()
         lc = config.layers_config
         rpn = config.rpn_config
@@ -111,7 +113,7 @@ class RpnModel(nn.Module):
         c_in = 1 if rpn.rpn_use_intensity_feature else 0
         self.pc_pointcnn = PointCNN(lc.pc_pointcnn, c_in)
         img_cls = ImgVgg if lc.img_extractor_type == "vgg" else ImgVggPyr
-        self.img_vgg_pyr = img_cls(lc.img_vgg_pyr)
+        self.img_vgg_pyr = img_cls(lc.img_vgg_pyr, conv_kernels=conv_kernels)
         c_pc = self.pc_pointcnn.out_channels
         c_img = lc.img_vgg_pyr.vgg_conv1[1] if img_cls is ImgVggPyr else lc.img_vgg_pyr.vgg_conv4[1]
         self.seg_logits = DenseBN(c_pc, k + 1, use_bn=False, activation=False)

@@ -4,8 +4,13 @@ heterofusionrcnn_tpu/ops/cropping.py `pc_crop_and_sample`).
 Per box: the points of its batch element inside the oriented box (three
 dot-product interval tests), the first R of them in index order, and for
 boxes with fewer members slot j repeats member j % cnt. An empty box gives
-index 0 everywhere and non_empty_box_mask False. Plain PyTorch: the TPU
-package's crop kernel (`pallas_crop.crop_gather`) is off by default there.
+index 0 everywhere and non_empty_box_mask False.
+
+The feature rows are gathered by `crop_gather` when the caller asks for it
+(`crop_kernel=True`, the port's counterpart of the JAX package's
+`HFR_PALLAS_CROP=1`, off by default there too): on CUDA tensors it launches
+the kernel of `csrc/crop.cu`, on CPU tensors it runs the plain indexing
+gather `crop_gather_plain`, which is also what runs with the switch off.
 """
 
 from __future__ import annotations
@@ -13,6 +18,45 @@ from __future__ import annotations
 import torch
 
 from heterofusionrcnn_torch.core.geometry import points_in_box_3d
+from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, pointers, use_kernel
+
+CROP_KERNEL = CudaKernel("crop.cu", {"hfr_crop_gather": [P, P, P, P, I, I, I, I]}, exact=False)
+
+
+def crop_gather(src: torch.Tensor, idx: torch.Tensor, box_ind: torch.Tensor) -> torch.Tensor:
+    """out[i, r, :] = src[box_ind[i], idx[i, r], :] (port of
+    heterofusionrcnn_tpu/ops/pallas_crop.py `crop_gather`).
+
+    Args:
+      src (B, N, C) float32; idx (Nb, R) int in [0, N); box_ind (Nb,) int in
+      [0, B). Indices are not range-checked on the card, which takes
+      C % 4 == 0 and a 16-byte aligned `src` (whole float4 rows).
+    Returns: (Nb, R, C).
+    """
+    if not use_kernel(src, idx, box_ind):
+        return crop_gather_plain(src, idx, box_ind)
+    b, n, c = src.shape
+    nb, rows = idx.shape
+    if src.dtype != torch.float32 or c % 4:
+        raise ValueError(f"crop kernel takes float32 features with C % 4 == 0, got {src.dtype}, C={c}")
+    if box_ind.shape != (nb,):
+        raise ValueError(f"box_ind must be ({nb},), got {tuple(box_ind.shape)}")
+    src = src.contiguous()
+    idx32 = idx.to(torch.int32).contiguous()
+    ind32 = box_ind.to(torch.int32).contiguous()
+    if src.data_ptr() % 16:
+        raise ValueError("crop kernel takes a 16-byte aligned source")
+    out = torch.empty((nb, rows, c), dtype=torch.float32, device=src.device)
+    CROP_KERNEL.launch("hfr_crop_gather", *pointers(src, idx32, ind32, out),
+                       I(nb), I(n), I(rows), I(c))
+    return out
+
+
+def crop_gather_plain(src, idx, box_ind):
+    b, n, c = src.shape
+    nb, rows = idx.shape
+    flat = (box_ind.long()[:, None] * n + idx.long()).reshape(-1)
+    return src.reshape(b * n, c)[flat].reshape(nb, rows, c)
 
 
 def first_k_true(mask: torch.Tensor, k: int):
@@ -29,8 +73,10 @@ def first_k_true(mask: torch.Tensor, k: int):
     return torch.where(idx >= n, torch.zeros_like(idx), idx), cnt
 
 
-def pc_crop_and_sample(pts, fts, intensities, mask, boxes_corners, box_ind, resize):
-    """Crop `resize` points per oriented 3D box.
+def pc_crop_and_sample(pts, fts, intensities, mask, boxes_corners, box_ind, resize,
+                       crop_kernel: bool = False):
+    """Crop `resize` points per oriented 3D box; `crop_kernel` gathers the
+    feature rows through `crop_gather`.
 
     Args:
       pts (B, N, 3), fts (B, N, C), intensities (B, N, 1), mask (B, N);
@@ -53,5 +99,5 @@ def pc_crop_and_sample(pts, fts, intensities, mask, boxes_corners, box_ind, resi
     crop_pts = pts.reshape(b * n, 3)[rows].reshape(nb, resize, 3)
     crop_int = intensities.reshape(b * n, 1)[rows].reshape(nb, resize, 1)
     crop_mask = mask.reshape(b * n)[rows].reshape(nb, resize)
-    crop_fts = fts.reshape(b * n, -1)[rows].reshape(nb, resize, -1)
+    crop_fts = (crop_gather if crop_kernel else crop_gather_plain)(fts, idx, box_ind)
     return crop_pts, crop_fts, crop_int, crop_mask, idx, cnt > 0

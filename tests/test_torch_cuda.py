@@ -9,7 +9,9 @@ on a machine that has only PyTorch and the CUDA toolkit:
 Tolerances: indices and the index-exact kernels' distances bit for bit
 (the kernels round term by term, built without FMA contraction, like the
 plain versions); fused XConv features atol/rtol 1e-4 (FP32 sums in another
-order).
+order); the fused 3x3 conv and transposed conv within 1e-4 + 1e-4 |plain|
+(FP32 sums in another order than cuDNN's, TF32 off); the crop gather bit
+for bit (a copy).
 """
 
 from __future__ import annotations
@@ -18,6 +20,13 @@ import numpy as np
 import pytest
 import torch
 
+from heterofusionrcnn_torch.ops.conv import (
+    conv3x3_affine_relu,
+    conv3x3_affine_relu_plain,
+    convtranspose3x3_affine_relu,
+    convtranspose3x3_affine_relu_plain,
+)
+from heterofusionrcnn_torch.ops.cropping import crop_gather, crop_gather_plain
 from heterofusionrcnn_torch.ops.grouping import knn_point, knn_point_plain
 from heterofusionrcnn_torch.ops.nms import oriented_nms, oriented_nms_plain
 from heterofusionrcnn_torch.ops.sampling import (
@@ -143,3 +152,53 @@ def test_xconv_kernel_matches_plain(cuda, k, cf, cp, d, with_x):
     idx = torch.from_numpy(rng.integers(0, n, (b, p, k)).astype(np.int32)).to(cuda)
     torch.testing.assert_close(fused_xconv(pts, fts, qrs, idx, w),
                                fused_xconv_plain(pts, fts, qrs, idx, w), rtol=1e-4, atol=1e-4)
+
+
+def _conv_case(rng, cuda, b, cin, cout, h, w, transpose):
+    x = rng.standard_normal((b, cin, h, w)).astype(np.float32)
+    wshape = (cin, cout, 3, 3) if transpose else (cout, cin, 3, 3)
+    wt = (rng.standard_normal(wshape) * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, cout).astype(np.float32)
+    shift = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    return [torch.from_numpy(a).to(cuda) for a in (x, wt, scale, shift)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True], ids=["conv", "convt"])
+@pytest.mark.parametrize("b,cin,cout,h,w", [
+    (2, 3, 32, 45, 151),     # odd H and W, the first VGG layer's Cin
+    (1, 40, 20, 5, 7),       # C not a multiple of 32 or 128, tiny odd map
+    (2, 256, 128, 23, 75),   # wide channels, odd map (a 45x150 pool level)
+    (1, 64, 64, 90, 300),
+])
+def test_conv_kernels_match_plain(cuda, transpose, b, cin, cout, h, w):
+    torch.backends.cudnn.allow_tf32 = False
+    x, wt, scale, shift = _conv_case(np.random.default_rng(8), cuda, b, cin, cout, h, w, transpose)
+    if transpose:
+        got = convtranspose3x3_affine_relu(x, wt, scale, shift)
+        want = convtranspose3x3_affine_relu_plain(x, wt, scale, shift)
+    else:
+        got = conv3x3_affine_relu(x, wt, scale, shift)
+        want = conv3x3_affine_relu_plain(x, wt, scale, shift)
+    assert got.shape == want.shape
+    assert bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,nb,r", [(4, 16384, 544, 400, 512), (4, 16384, 288, 400, 512),
+                                        (2, 300, 36, 7, 50), (1, 64, 4, 3, 33)])
+def test_crop_gather_kernel_matches_plain(cuda, b, n, c, nb, r):
+    rng = np.random.default_rng(9)
+    src = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, n, (nb, r)).astype(np.int32)).to(cuda)
+    box_ind = torch.from_numpy(np.sort(rng.integers(0, b, nb)).astype(np.int32)).to(cuda)
+    torch.testing.assert_close(crop_gather(src, idx, box_ind), crop_gather_plain(src, idx, box_ind),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_crop_gather_kernel_refuses_ragged_rows(cuda):
+    src = torch.zeros((1, 8, 33), device=cuda)
+    idx = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        crop_gather(src, idx, torch.zeros(1, dtype=torch.int32, device=cuda))

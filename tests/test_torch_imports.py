@@ -1,6 +1,7 @@
 """The port stands alone: no file of `heterofusionrcnn_torch/` and not
-`chip_smoke.py` imports jax, flax or the JAX package (checked on the AST
-of every file, so an import inside a function counts too)."""
+`chip_smoke.py` imports jax, flax or the JAX package, nor OpenCV or PIL,
+which the card's machine lacks (checked on the AST of every file, so an
+import inside a function counts too)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "heterofusionrcnn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "heterofusionrcnn_tpu", "cv2", "PIL")
 FILES = sorted((ROOT / "heterofusionrcnn_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

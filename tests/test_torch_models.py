@@ -131,6 +131,13 @@ def test_rcnn_and_two_stage(monkeypatch, shared_map):
             load_flax_variables(det.rpn, rpn_v)
             load_flax_variables(det.rcnn, rcnn_v)
             got = det.eval()(b["point_cloud"], b["image_input"], b["stereo_calib_p2"])
+            # The JAX fused function's dict (experiments/run_inference.py).
+            assert set(got) == {"proposals", "proposal_scores", "final_boxes", "final_scores",
+                                "final_classes", "final_valid", "num_final"}
+            np.testing.assert_array_equal(got["final_classes"].numpy(), want["final_classes"])
+            np.testing.assert_array_equal(got["final_valid"].numpy(), want["final_valid"])
+            _close(got["proposals"], rpn_want["proposals"])
+            _close(got["proposal_scores"], rpn_want["proposal_scores"])
             got["num_boxes_before_padding"] = got["num_final"]
         else:
             rcnn = RcnnModel(rcnn_cfg.model_config, 3, CLUSTER_SIZES, 64 + 8)
