@@ -5,7 +5,9 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the seven hand-written kernels (`heterofusionrcnn_torch/ops/csrc`,
-   one nvcc per source, all at once).
+   one nvcc per source, all at once), prints ptxas's registers, stack,
+   spills and static shared memory of the two conv kernels and counts
+   their tensor-core instructions (HGMMA, HMMA) in the SASS.
 3. Drives the main path: full-width `rpn_multiclass` -> `rcnn_multiclass`
    two-stage inference (16384 points, 360x1200 images) at batch 4 with
    random weights and BatchNorm statistics from seed 0, kernel switches
@@ -28,9 +30,12 @@
    PyTorch call computes the same function, that call (`library_ms`, a
    yardstick the port never calls: cdist + topk, cuDNN conv2d /
    conv_transpose2d with TF32 off, index_select); computes each kernel's
-   bound from its inputs, and FPS's latency floor (npoint times the
-   per-iteration time of the FPS kernel on 1024 points, one a thread) for
-   the report file.
+   bound from its inputs (for the two convs, which run on the tensor cores
+   in 3xTF32, 3 x operations at the TF32 rate), prints each conv call's
+   time and achieved TFLOP/s beside cuDNN's (and the kernel's alone on the
+   weight operand the wrapper arranges per call), and computes FPS's latency
+   floor (npoint times the per-iteration time of the FPS kernel on 1024
+   points, one a thread) for the report file.
 6. Checks the outputs: finite, expected shapes, sane counts, and the same
    detector at small width on the card agreeing with its CPU run.
 7. The KITTI entry point: saves seed-0 random weights (random BatchNorm
@@ -65,6 +70,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM FP32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 on the tensor cores
+# The conv kernels run each FP32-grade multiply-add as three TF32 products
+# (3xTF32): their bound counts 3 x operations at the TF32 rate.
+TF32_PRODUCTS = 3
 XCONV_RTOL = XCONV_ATOL = 1e-4
 CONV_RTOL = CONV_ATOL = 1e-4
 BATCH = 4                      # frames per forward on the main path
@@ -243,9 +252,9 @@ def check_kernels(calls, calls_on, reps):
                           library_ms=None, calls=[])
         return rows[name]
 
-    def add_bound(r, nbytes, flops):
+    def add_bound(r, nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        t_ops = flops / flops_per_s * 1e3
         r["_bytes_ms"] = r.get("_bytes_ms", 0.0) + t_bytes
         r["_ops_ms"] = r.get("_ops_ms", 0.0) + t_ops
         r["bound_ms"] += max(t_bytes, t_ops)
@@ -335,20 +344,27 @@ def check_kernels(calls, calls_on, reps):
         r["plain_ms"] += pms
         r["calls"].append(dict(shape=f"{b}x{p} K{k} Cf{cf} Cin{cin} D{d}", ms=ms, plain_ms=pms))
 
-    # Fused 3x3 conv and transposed conv: 2 * 9 * Cin * Cout FP32 operations
-    # per (input) pixel; bytes of the input, the weights, scale and shift,
-    # and the output. The library call is the convolution alone (cuDNN,
-    # TF32 off).
+    # Fused 3x3 conv and transposed conv: 2 * 9 * Cin * Cout operations per
+    # (input) pixel, each three TF32 tensor-core products (3xTF32), against
+    # bytes of the input, the weights, scale and shift, and the output. The
+    # FP32-FMA bound of the same work is kept beside it (`fp32_bound_ms`).
+    # The library call is the convolution alone (cuDNN, TF32 off).
+    # `kernel_ms` times the kernel alone on the weight operand the wrapper
+    # arranges and splits per call (`ms` includes that arrangement).
     convs = (
         ("conv", "conv.cu", conv.conv3x3_affine_relu, conv.conv3x3_affine_relu_plain,
-         lambda x, w: F.conv2d(x, w, padding=1), 1),
+         lambda x, w: F.conv2d(x, w, padding=1), 1, conv.CONV_KERNEL, "hfr_conv3x3",
+         conv.conv_weight_operand),
         ("convt", "convt.cu", conv.convtranspose3x3_affine_relu,
          conv.convtranspose3x3_affine_relu_plain,
-         lambda x, w: F.conv_transpose2d(x, w, stride=2), 4),
+         lambda x, w: F.conv_transpose2d(x, w, stride=2), 4, conv.CONVT_KERNEL, "hfr_convt3x3",
+         conv.convt_weight_operand),
     )
-    for name, src, fn, plain, library, up in convs:
+    for name, src, fn, plain, library, up, kern, cfn, operand in convs:
         r = row(name, f"heterofusionrcnn_torch/ops/csrc/{src}")
         r["library_ms"] = 0.0
+        r["fp32_bound_ms"] = 0.0
+        r["kernel_ms"] = 0.0
         for (x, w, sc, sh), kw in calls_on[KERNEL_OPS[name]]:
             r["max_abs_err"] = max(r["max_abs_err"], check_switched(name, (x, w, sc, sh), kw))
             ms = cuda_ms(lambda: fn(x, w, sc, sh, **kw), reps)
@@ -356,13 +372,27 @@ def check_kernels(calls, calls_on, reps):
             lms = cuda_ms(lambda: library(x, w), reps)
             b, cin, h, wd = x.shape
             cout = sc.shape[0]
+            wt = operand(w)
+            out_hw = (h, wd) if up == 1 else (2 * h, 2 * wd)
+            kms = cuda_ms(lambda: conv._launch(kern, cfn, x, wt, sc, sh, cout, out_hw,
+                                               kw.get("relu", True)), reps)
+            flops = 2.0 * 9 * cin * cout * b * h * wd
             nbytes = 4 * (x.numel() + w.numel() + 2 * cout + up * b * cout * h * wd)
-            add_bound(r, nbytes, 2.0 * 9 * cin * cout * b * h * wd)
+            add_bound(r, nbytes, TF32_PRODUCTS * flops, TF32_FLOPS_PER_S)
+            r["fp32_bound_ms"] += max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
             r["ms"] += ms
+            r["kernel_ms"] += kms
             r["plain_ms"] += pms
             r["library_ms"] += lms
-            r["calls"].append(dict(shape=f"{b}x{cin}x{h}x{wd}->{cout}", ms=ms, plain_ms=pms,
-                                   library_ms=lms))
+            shape = f"{b}x{cin}x{h}x{wd}->{cout}"
+            tflops = flops / ms * 1e-9
+            r["calls"].append(dict(shape=shape, ms=ms, kernel_ms=kms, plain_ms=pms,
+                                   library_ms=lms, tflops=tflops,
+                                   kernel_tflops=flops / kms * 1e-9,
+                                   library_tflops=flops / lms * 1e-9))
+            print(f"{name} {shape}: {ms:.4f} ms, {tflops:.2f} TFLOP/s (kernel alone "
+                  f"{kms:.4f} ms, {flops / kms * 1e-9:.2f} TFLOP/s); cuDNN {lms:.4f} ms, "
+                  f"{flops / lms * 1e-9:.2f} TFLOP/s", flush=True)
 
     # Crop gather: a copy, bytes only (each distinct gathered row read once,
     # each output row written once, plus the indices).
@@ -389,6 +419,44 @@ def check_kernels(calls, calls_on, reps):
     for r in rows.values():
         r["bound_by"] = "bytes" if r.pop("_bytes_ms") > r.pop("_ops_ms") else "operations"
     return rows
+
+
+def ptxas_summary(log: str):
+    """Registers, stack, spills and static shared memory of each kernel in
+    an `nvcc -Xptxas -v` log (dynamic shared memory is set at launch)."""
+    import re
+
+    out, fn = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = dict(function=m.group(1))
+            out.append(fn)
+            continue
+        if fn is None:
+            continue
+        for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("static_smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                fn[key] = int(m.group(1))
+    return out
+
+
+def sass_mma_counts(lib_path) -> dict:
+    """Tensor-core instructions in a built library's SASS (`cuobjdump`
+    beside nvcc): HGMMA is Hopper's wgmma, HMMA the older mma.sync."""
+    from heterofusionrcnn_torch.ops.dispatch import _nvcc
+
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
 
 
 def profile_forward(det, inputs, top: int = 15):
@@ -566,7 +634,15 @@ def main(argv=None) -> int:
     dispatch.build_all(kernels.values())
     report["build_s"] = time.perf_counter() - t0
     report["ptxas"] = {k: kern.build_log for k, kern in kernels.items()}
+    report["ptxas_conv"] = {k: ptxas_summary(kernels[k].build_log) for k in ("conv", "convt")}
     print(f"built {len(kernels)} kernels in {report['build_s']:.1f} s", flush=True)
+    for name, fns in report["ptxas_conv"].items():
+        for f in fns:
+            print(f"ptxas {name}: " + " ".join(f"{k}={v}" for k, v in f.items()), flush=True)
+    report["sass_conv"] = {k: sass_mma_counts(kernels[k].lib_path) for k in ("conv", "convt")}
+    print(f"tensor-core instructions in SASS: {report['sass_conv']}", flush=True)
+    if not all(c["HGMMA"] for c in report["sass_conv"].values()):
+        raise AssertionError(f"conv kernels without wgmma: {report['sass_conv']}")
 
     b = BATCH
     det, inputs = build_two_stage(BATCH, SEED, "cuda")

@@ -8,8 +8,14 @@ the conv weight (Cout, Cin, 3, 3) and the transposed conv weight
 (Cin, Cout, 3, 3) as `nn.Conv2d` / `nn.ConvTranspose2d` hold them (the
 latter flipped in both spatial axes against flax, see
 `layers.ConvTransposeBNRelu`). CUDA tensors launch the kernels of
-`csrc/conv.cu` and `csrc/convt.cu`; CPU tensors run the plain versions.
-Any H and W are taken; the TPU's tile-fit gate has no counterpart.
+`csrc/conv.cu` and `csrc/convt.cu`, implicit GEMMs on the tensor cores in
+3xTF32 (`csrc/conv_common.cuh`); CPU tensors run the plain versions. Any H
+and W are taken; the TPU's tile-fit gate has no counterpart.
+
+The kernels take the weight as their GEMM's B operand, arranged here once
+per call (`conv_weight_operand`, `convt_weight_operand`): K rows in the
+kernel's order (`conv_gemm_weight`, `convt_gemm_weight`), each value split
+into two TF32 parts (`split_tf32`), cut into wgmma B tiles (`arrange_b`).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch.nn.functional as F
 from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, pointers, use_kernel
 
 _ARGS = [P, P, P, P, P, I, I, I, I, I, I]
+N_ALIGN = 64  # output channels of the arranged weight padded to this (kNAlign)
 CONV_KERNEL = CudaKernel("conv.cu", {"hfr_conv3x3": _ARGS}, exact=False)
 CONVT_KERNEL = CudaKernel("convt.cu", {"hfr_convt3x3": _ARGS}, exact=False)
 
@@ -38,6 +45,77 @@ def _check(x, weight, scale, shift, cin_dim: int):
     if x.numel() >= 2**31:
         raise ValueError("conv kernels take fewer than 2**31 input elements")
     return cout
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 stored mantissa bits), to nearest with
+    ties away from zero on the 13 dropped bits: `cvt.rna.tf32.f32`."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor):
+    """t = big + small up to ~2^-22 |t|: big = tf32(t), small = tf32(t - big)."""
+    big = tf32_round(t)
+    return big, tf32_round(t - big)
+
+
+def _n_padded(cout: int) -> int:
+    return -(-cout // N_ALIGN) * N_ALIGN
+
+
+def _chunked_gemm_weight(w: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 9 taps) -> (K, N): K in (chunk of 8 input channels, tap,
+    channel in chunk) order, Cin padded to a multiple of 8 and N to N_ALIGN
+    with zeros."""
+    cout, cin, _ = w.shape
+    cp = -(-cin // 8) * 8
+    w = F.pad(w, (0, 0, 0, cp - cin, 0, _n_padded(cout) - cout))
+    return w.reshape(-1, cp // 8, 8, 9).permute(1, 3, 2, 0).reshape(9 * cp, -1)
+
+
+def conv_gemm_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The conv kernel's B operand (K, N) from the (Cout, Cin, 3, 3) weight:
+    for Cin >= 8 the chunked order of `_chunked_gemm_weight`; for Cin < 8
+    k = ci * 9 + tap, 9 Cin rows padded to a multiple of 8."""
+    cout, cin = weight.shape[:2]
+    w = weight.reshape(cout, cin, 9)
+    if cin >= 8:
+        return _chunked_gemm_weight(w)
+    steps = -(-9 * cin // 8)
+    return F.pad(w.reshape(cout, 9 * cin).t(), (0, _n_padded(cout) - cout, 0, 8 * steps - 9 * cin))
+
+
+def convt_gemm_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The transposed conv kernel's B operand (K, N) from the (Cin, Cout, 3, 3)
+    weight, in the chunked order (tap a * 3 + b of the port's orientation)."""
+    cin, cout = weight.shape[:2]
+    return _chunked_gemm_weight(weight.reshape(cin, cout, 9).permute(1, 0, 2))
+
+
+def arrange_b(wg: torch.Tensor) -> torch.Tensor:
+    """(K, N) -> (K / 8, 2, N / 8, 2, 8, 4): per k-step of 8 rows, the big
+    and the small TF32 part as wgmma B tiles (K-major, no swizzle):
+    [ks][part][ng][h][r][c] = part of row k = 8 ks + 4 h + c, column
+    n = 8 ng + r. One tile row holds 4 k of one output channel, 8 rows make
+    a 128-byte core matrix (csrc/conv_common.cuh)."""
+    k, n = wg.shape
+
+    def tiles(m):
+        return m.reshape(k // 8, 2, 4, n // 8, 8).permute(0, 3, 1, 4, 2)
+
+    big, small = split_tf32(wg)
+    return torch.stack([tiles(big), tiles(small)], 1).contiguous()
+
+
+def conv_weight_operand(weight: torch.Tensor) -> torch.Tensor:
+    """What `csrc/conv.cu` takes for the (Cout, Cin, 3, 3) weight."""
+    return arrange_b(conv_gemm_weight(weight))
+
+
+def convt_weight_operand(weight: torch.Tensor) -> torch.Tensor:
+    """What `csrc/convt.cu` takes for the (Cin, Cout, 3, 3) weight."""
+    return arrange_b(convt_gemm_weight(weight))
 
 
 def _launch(kernel, fn, x, wt, scale, shift, cout, out_hw, relu):
@@ -60,7 +138,7 @@ def conv3x3_affine_relu(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tens
     cout = _check(x, weight, scale, shift, cin_dim=1)
     if not use_kernel(x, weight, scale, shift):
         return conv3x3_affine_relu_plain(x, weight, scale, shift, relu)
-    wt = weight.permute(1, 2, 3, 0).contiguous()  # (Cin, 3, 3, Cout)
+    wt = conv_weight_operand(weight)
     return _launch(CONV_KERNEL, "hfr_conv3x3", x, wt, scale, shift, cout,
                    x.shape[2:], relu)
 
@@ -82,7 +160,7 @@ def convtranspose3x3_affine_relu(x: torch.Tensor, weight: torch.Tensor, scale: t
     cout = _check(x, weight, scale, shift, cin_dim=0)
     if not use_kernel(x, weight, scale, shift):
         return convtranspose3x3_affine_relu_plain(x, weight, scale, shift, relu)
-    wt = weight.permute(0, 2, 3, 1).contiguous()  # (Cin, 3, 3, Cout)
+    wt = convt_weight_operand(weight)
     h, w = x.shape[2:]
     return _launch(CONVT_KERNEL, "hfr_convt3x3", x, wt, scale, shift, cout,
                    (2 * h, 2 * w), relu)

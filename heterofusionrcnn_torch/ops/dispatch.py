@@ -10,7 +10,8 @@ Each `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into its own
 shared library with a plain C interface, loaded with `ctypes`, at first use
 (`build_all` compiles every missing library at once, one `nvcc` process per
 source). Libraries land in `ops/_build/` (listed in `.gitignore`) under a
-name that hashes the source and the flags, so an edited source rebuilds.
+name that hashes the source, the `csrc/*.cuh` headers it includes and the
+flags, so an edited source or header rebuilds.
 Each library exports `int <fn>(..., void* stream)` returning the
 `cudaError_t` of its launch, and `const char* hfr_error_string(int)`.
 """
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -41,6 +43,7 @@ _EXACT_FLAGS = ["--fmad=false"]
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
@@ -86,9 +89,25 @@ class CudaKernel:
     def name(self) -> str:
         return self.source.stem
 
+    def headers(self) -> List[Path]:
+        """The headers the source includes with quotes, directly or through
+        another header, resolved beside the including file."""
+        found, todo = [], [self.source]
+        while todo:
+            src = todo.pop()
+            for name in _INCLUDE.findall(src.read_text()):
+                path = (src.parent / name).resolve()
+                if path not in found:
+                    found.append(path)
+                    todo.append(path)
+        return sorted(found)
+
     @property
     def lib_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in self.headers():
+            h.update(header.name.encode())
+            h.update(header.read_bytes())
         h.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
