@@ -4,16 +4,18 @@
     python3 chip_smoke.py [--out DIR]
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the seven hand-written kernels (`heterofusionrcnn_torch/ops/csrc`,
-   one nvcc per source, all at once), prints ptxas's registers, stack,
-   spills and static shared memory of the two conv kernels and counts
-   their tensor-core instructions (HGMMA, HMMA) in the SASS.
+2. Builds the hand-written kernels (`heterofusionrcnn_torch/ops/csrc`, seven
+   sources, one nvcc per source, all at once; xconv.cu holds the fused
+   XConv and its split epilogue), prints ptxas's registers, stack, spills
+   and static shared memory of the conv, transposed conv and XConv kernels
+   and counts their tensor-core instructions (HGMMA, HMMA) in the SASS.
 3. Drives the main path: full-width `rpn_multiclass` -> `rcnn_multiclass`
    two-stage inference (16384 points, 360x1200 images) at batch 4 with
    random weights and BatchNorm statistics from seed 0, kernel switches
    off (the JAX package's default path). Every launch count is set to 0
-   just before one forward and read just after; each of its four kernels
-   (KNN, FPS, NMS, fused XConv) must have launched. The forward is then
+   just before one forward and read just after; each of its five kernels
+   (KNN, FPS, NMS, fused XConv, the XConv's split epilogue) must have
+   launched. The forward is then
    timed over 5 batches with CUDA events and profiled once (device time by
    kernel name, device busy share).
 4. Drives the same detector (same weights, same inputs) with both switches
@@ -30,10 +32,13 @@
    PyTorch call computes the same function, that call (`library_ms`, a
    yardstick the port never calls: cdist + topk, cuDNN conv2d /
    conv_transpose2d with TF32 off, index_select); computes each kernel's
-   bound from its inputs (for the two convs, which run on the tensor cores
-   in 3xTF32, 3 x operations at the TF32 rate), prints each conv call's
-   time and achieved TFLOP/s beside cuDNN's (and the kernel's alone on the
-   weight operand the wrapper arranges per call), and computes FPS's latency
+   bound from its inputs (for the two convs and the XConv, which run on
+   the tensor cores in 3xTF32, 3 x operations at the TF32 rate), prints each
+   conv call's time and achieved TFLOP/s beside cuDNN's (and the kernel's
+   alone on the weight operand the wrapper arranges per call), each XConv
+   call's time, TFLOP/s, tile and split beside one FP32 `torch.matmul` of
+   its composed product on the materialised (B*P, K*Cin) operand (a
+   yardstick the port never calls), and computes FPS's latency
    floor (npoint times the per-iteration time of the FPS kernel on 1024
    points, one a thread) for the report file.
 6. Checks the outputs: finite, expected shapes, sane counts, and the same
@@ -46,8 +51,8 @@
    split val, full width, and checks one prediction file of finite rows per
    frame, 26 convs, 6 transposed convs and 1 crop launched on every frame
    (the RCNN runs its own VGG pass, the CLI's default), each of those
-   calls held against its plain version as in step 5, and the evaluator's
-   AP lines.
+   calls and every fused XConv and split-epilogue call held against its
+   plain version as in step 5, and the evaluator's AP lines.
 
 Prints a {"kernels": [...]} JSON line, then the result as its last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -90,6 +95,8 @@ TPU_KERNELS = {
     "fps": "heterofusionrcnn_tpu/ops/pallas_fps.py:116 (farthest_point_sample_pallas)",
     "nms": "heterofusionrcnn_tpu/ops/pallas_nms.py:138 (oriented_nms_pallas)",
     "xconv": "heterofusionrcnn_tpu/ops/pallas_xconv.py:263 (fused_xconv)",
+    "xconv_epilogue": "heterofusionrcnn_tpu/ops/pallas_xconv.py:263 (fused_xconv; its ELU + BN "
+                      "epilogue, for split contractions)",
     "crop": "heterofusionrcnn_tpu/ops/pallas_crop.py:122 (crop_gather)",
     "conv": "heterofusionrcnn_tpu/ops/pallas_conv.py:157 (conv3x3_affine_relu)",
     "convt": "heterofusionrcnn_tpu/ops/pallas_convtranspose.py:86 (convtranspose3x3_affine_relu)",
@@ -97,9 +104,10 @@ TPU_KERNELS = {
 # The op each kernel's wrapper is reached through on the main path; each
 # call of it launches the kernel once.
 KERNEL_OPS = {"knn": "knn_point", "fps": "farthest_point_sample",
-              "nms": "oriented_nms", "xconv": "fused_xconv", "crop": "crop_gather",
+              "nms": "oriented_nms", "xconv": "fused_xconv",
+              "xconv_epilogue": "xconv_split_epilogue", "crop": "crop_gather",
               "conv": "conv3x3_affine_relu", "convt": "convtranspose3x3_affine_relu"}
-SLICE1 = ("knn", "fps", "nms", "xconv")
+SLICE1 = ("knn", "fps", "nms", "xconv", "xconv_epilogue")
 # Launches of the switch-controlled kernels per batch-4 forward with the
 # switches on (one shared VGG pass) and per KITTI frame (two VGG passes).
 SWITCHED_PER_FORWARD = {"conv": 13, "convt": 3, "crop": 1}
@@ -165,10 +173,11 @@ def recording(ops=tuple(KERNEL_OPS.values())):
     """Wraps the kernel ops named in `ops` where the models call them;
     yields {op: [(args, kwargs), ...]}, one record per call."""
     from heterofusionrcnn_torch.models.extractors import layers, pointcnn
-    from heterofusionrcnn_torch.ops import cropping, nms
+    from heterofusionrcnn_torch.ops import cropping, nms, xconv
 
     where = {"knn_point": pointcnn, "farthest_point_sample": pointcnn,
-             "fused_xconv": pointcnn, "oriented_nms": nms, "crop_gather": cropping,
+             "fused_xconv": pointcnn, "xconv_split_epilogue": xconv,
+             "oriented_nms": nms, "crop_gather": cropping,
              "conv3x3_affine_relu": layers, "convtranspose3x3_affine_relu": layers}
     recs = {op: Recorder(getattr(where[op], op)) for op in ops}
     for op, rec in recs.items():
@@ -210,6 +219,33 @@ def check_switched(name, args, kwargs):
     err = (got - want).abs()
     if not bool((err <= CONV_ATOL + CONV_RTOL * want.abs()).all()):
         raise AssertionError(f"{name} differs by {float(err.max())} at {shape}")
+    return float(err.max())
+
+
+def check_xconv(pts, fts, qrs, idx, w):
+    """One fused XConv call against its plain version within XCONV_ATOL +
+    XCONV_RTOL |plain|; returns the max |kernel - plain|."""
+    from heterofusionrcnn_torch.ops import xconv
+
+    got = xconv.fused_xconv(pts, fts, qrs, idx, w)
+    want = xconv.fused_xconv_plain(pts, fts, qrs, idx, w)
+    err = (got - want).abs()
+    if not bool((err <= XCONV_ATOL + XCONV_RTOL * want.abs()).all()):
+        raise AssertionError(f"xconv differs by {float(err.max())} at {tuple(idx.shape)} "
+                             f"Cin {w.wc.shape[1]} D {w.wc.shape[2]}")
+    return float(err.max())
+
+
+def check_epilogue(partial, sc, bc):
+    """The split epilogue against its plain version, within the XConv's gate."""
+    from heterofusionrcnn_torch.ops import xconv
+
+    got = xconv.xconv_split_epilogue(partial, sc, bc)
+    want = xconv.xconv_split_epilogue_plain(partial, sc, bc)
+    err = (got - want).abs()
+    if not bool((err <= XCONV_ATOL + XCONV_RTOL * want.abs()).all()):
+        raise AssertionError(f"xconv epilogue differs by {float(err.max())} at "
+                             f"{tuple(partial.shape)}")
     return float(err.max())
 
 
@@ -318,31 +354,65 @@ def check_kernels(calls, calls_on, reps):
         r["calls"].append(dict(shape=f"{b}x{n}->{keep}@{thresh}", ms=ms, plain_ms=pms, ious=ious))
 
     # Fused XConv: FLOPs of lift-1, lift-2, X-net, X @ in and the composed
-    # separable conv; bytes of points, queries, indices, features, weights
-    # and the output.
+    # separable conv, each three TF32 tensor-core products (3xTF32; the
+    # FP32-FMA bound of the same work is kept beside it as `fp32_bound_ms`);
+    # bytes of points, queries, indices, features, weights and the output.
+    # `matmul_ms` times the composed product alone as one FP32 torch.matmul
+    # (TF32 off) on the materialised (B*P, K*Cin) operand: a yardstick of the
+    # product the kernel fuses, never called by the port.
     r = row("xconv", "heterofusionrcnn_torch/ops/csrc/xconv.cu")
+    r["fp32_bound_ms"] = 0.0
+    r["matmul_ms"] = 0.0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (pts, fts, qrs, idx, w), _ in calls["fused_xconv"]:
-        got = xconv.fused_xconv(pts, fts, qrs, idx, w)
-        want = xconv.fused_xconv_plain(pts, fts, qrs, idx, w)
-        err = (got - want).abs()
-        if not bool((err <= XCONV_ATOL + XCONV_RTOL * want.abs()).all()):
-            raise AssertionError(f"xconv differs by {float(err.max())} at {tuple(idx.shape)}")
-        r["max_abs_err"] = max(r["max_abs_err"], float(err.max()))
+        r["max_abs_err"] = max(r["max_abs_err"], check_xconv(pts, fts, qrs, idx, w))
         ms = cuda_ms(lambda: xconv.fused_xconv(pts, fts, qrs, idx, w), reps)
         pms = cuda_ms(lambda: xconv.fused_xconv_plain(pts, fts, qrs, idx, w), 1)
         b, n = pts.shape[:2]
         _, p, k = idx.shape
         cf, cin, d = w.w1.shape[1], w.wc.shape[1], w.wc.shape[2]
         cp = cin - cf
+        a = xconv.xconv_gemm_operand(pts, fts, qrs, idx, w).reshape(b * p, k * cin)
+        wc = w.wc.reshape(k * cin, d)
+        mms = cuda_ms(lambda: torch.matmul(a, wc), reps)
+        del a
         per_q = k * (2 * 3 * cf + 2 * cf * cf + 2 * k * cin + 2 * cin * d)
         if w.with_x:
             per_q += 2 * 3 * k * k * k + 2 * 2 * k * k * k
-        wbytes = 4 * sum(t.numel() for t in vars(w).values() if t is not None)
+        wbytes = 4 * sum(t.numel() for f, t in vars(w).items()
+                         if t is not None and f != "wc_operand")
         nbytes = 4 * (b * n * (3 + cp) + b * p * (3 + k + d)) + wbytes
-        add_bound(r, nbytes, float(b * p * per_q))
+        flops = float(b * p * per_q)
+        add_bound(r, nbytes, TF32_PRODUCTS * flops, TF32_FLOPS_PER_S)
+        r["fp32_bound_ms"] += max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
         r["ms"] += ms
         r["plain_ms"] += pms
-        r["calls"].append(dict(shape=f"{b}x{p} K{k} Cf{cf} Cin{cin} D{d}", ms=ms, plain_ms=pms))
+        r["matmul_ms"] += mms
+        plan = xconv.plan_xconv(b * p, k, cf, cp, d, sms)
+        shape = f"{b}x{p} K{k} Cf{cf} Cin{cin} D{d}"
+        sep = 2.0 * b * p * k * cin * d
+        r["calls"].append(dict(shape=shape, ms=ms, plain_ms=pms, matmul_ms=mms,
+                               tflops=flops / ms * 1e-9, blocks=plan.blocks,
+                               tile=f"{xconv.BLOCK_Q}x{xconv.BLOCK_D}", splits=plan.splits,
+                               matmul_tflops=sep / mms * 1e-9))
+        print(f"xconv {shape}: {ms:.4f} ms, {flops / ms * 1e-9:.2f} TFLOP/s, tile "
+              f"{xconv.BLOCK_Q}x{xconv.BLOCK_D} x {plan.splits} split(s) = {plan.blocks} blocks; "
+              f"FP32 matmul of the product alone {mms:.4f} ms ({sep / mms * 1e-9:.2f} TFLOP/s)",
+              flush=True)
+
+    # The XConv's split epilogue: the splits' partial sums read once, the
+    # output written once; ELU and the affine on each output.
+    r = row("xconv_epilogue", "heterofusionrcnn_torch/ops/csrc/xconv.cu")
+    for (partial, sc, bc), _ in calls["xconv_split_epilogue"]:
+        r["max_abs_err"] = max(r["max_abs_err"], check_epilogue(partial, sc, bc))
+        ms = cuda_ms(lambda: xconv.xconv_split_epilogue(partial, sc, bc), reps)
+        pms = cuda_ms(lambda: xconv.xconv_split_epilogue_plain(partial, sc, bc), reps)
+        s_, m, d = partial.shape
+        add_bound(r, 4 * (partial.numel() + m * d + 2 * d), float(m * d * (s_ + 3)))
+        r["ms"] += ms
+        r["plain_ms"] += pms
+        r["calls"].append(dict(shape=f"{s_}x{m}x{d}", ms=ms, plain_ms=pms))
 
     # Fused 3x3 conv and transposed conv: 2 * 9 * Cin * Cout operations per
     # (input) pixel, each three TF32 tensor-core products (3xTF32), against
@@ -566,8 +636,9 @@ def _kitti_run(kernels, out_root, ckpt):
 
     TwoStageDetector.forward = counted
     switched = {k: KERNEL_OPS[k] for k in SWITCHED_PER_FRAME}
+    xconv_ops = (KERNEL_OPS["xconv"], KERNEL_OPS["xconv_epilogue"])
     try:
-        with recording(tuple(switched.values())) as calls:
+        with recording(tuple(switched.values()) + xconv_ops) as calls:
             result = run_inference.main([
                 "--rpn_config", "rpn_multiclass", "--rcnn_config", "rcnn_multiclass",
                 "--rpn_checkpoint", os.path.join(ckpt, "rpn"),
@@ -598,6 +669,12 @@ def _kitti_run(kernels, out_root, ckpt):
         if len(calls[op]) != SWITCHED_PER_FRAME[name] * len(frames):
             raise AssertionError(f"{name}: {len(calls[op])} recorded calls over {len(frames)} frames")
         result["max_abs_err"][name] = max(check_switched(name, a, kw) for a, kw in calls[op])
+    # Every fused XConv call of every frame, and every split epilogue.
+    for name, check in (("xconv", check_xconv), ("xconv_epilogue", check_epilogue)):
+        op = KERNEL_OPS[name]
+        if len(calls[op]) != sum(launches[name] for launches in per_frame):
+            raise AssertionError(f"{name}: {len(calls[op])} recorded calls, launches {per_frame}")
+        result["max_abs_err"][name] = max(check(*a) for a, _ in calls[op])
     del calls
     result["launches_per_frame"] = per_frame
     print("KITTI frames ms: " + " ".join(f"{t:.2f}" for t in result["frame_ms"]), flush=True)
@@ -628,21 +705,22 @@ def main(argv=None) -> int:
 
     kernels = {"knn": grouping.KNN_KERNEL, "fps": sampling.FPS_KERNEL,
                "nms": nms.NMS_KERNEL, "xconv": xconv.XCONV_KERNEL,
-               "crop": cropping.CROP_KERNEL, "conv": conv.CONV_KERNEL,
+               "xconv_epilogue": xconv.XCONV_EPILOGUE_KERNEL, "crop": cropping.CROP_KERNEL, "conv": conv.CONV_KERNEL,
                "convt": conv.CONVT_KERNEL}
     t0 = time.perf_counter()
     dispatch.build_all(kernels.values())
     report["build_s"] = time.perf_counter() - t0
     report["ptxas"] = {k: kern.build_log for k, kern in kernels.items()}
-    report["ptxas_conv"] = {k: ptxas_summary(kernels[k].build_log) for k in ("conv", "convt")}
+    tensor_core = ("conv", "convt", "xconv")
+    report["ptxas_conv"] = {k: ptxas_summary(kernels[k].build_log) for k in tensor_core}
     print(f"built {len(kernels)} kernels in {report['build_s']:.1f} s", flush=True)
     for name, fns in report["ptxas_conv"].items():
         for f in fns:
             print(f"ptxas {name}: " + " ".join(f"{k}={v}" for k, v in f.items()), flush=True)
-    report["sass_conv"] = {k: sass_mma_counts(kernels[k].lib_path) for k in ("conv", "convt")}
+    report["sass_conv"] = {k: sass_mma_counts(kernels[k].lib_path) for k in tensor_core}
     print(f"tensor-core instructions in SASS: {report['sass_conv']}", flush=True)
     if not all(c["HGMMA"] for c in report["sass_conv"].values()):
-        raise AssertionError(f"conv kernels without wgmma: {report['sass_conv']}")
+        raise AssertionError(f"tensor-core kernels without wgmma: {report['sass_conv']}")
 
     b = BATCH
     det, inputs = build_two_stage(BATCH, SEED, "cuda")

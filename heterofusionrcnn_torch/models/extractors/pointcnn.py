@@ -6,7 +6,9 @@ Inference only: every XConv runs through the fused XConv op
 (`ops.xconv.fused_xconv`, the CUDA kernel on the card), as the JAX package
 routes inference through its fused Pallas kernel (`_fused_xconv_mode`).
 The modules hold the same parameters as the flax tree; `XConv.weights()`
-folds them for the fused op.
+folds them for the fused op, and `XConv.kernel_weights()` keeps that fold
+(with the kernel's arranged Wc on the card) until a parameter or buffer
+it reads changes.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from heterofusionrcnn_torch.models.extractors.layers import (
 )
 from heterofusionrcnn_torch.ops.grouping import knn_point
 from heterofusionrcnn_torch.ops.sampling import farthest_point_sample, gather_point
-from heterofusionrcnn_torch.ops.xconv import XConvWeights, fused_xconv
+from heterofusionrcnn_torch.ops.xconv import XConvWeights, fused_xconv, xconv_weight_operand
 
 
 class XConv(nn.Module):
@@ -52,6 +54,8 @@ class XConv(nn.Module):
         if with_global:
             self.fts_global_0 = DenseBN(3, C // 4)
             self.fts_global = DenseBN(C // 4, C // 4)
+        self._folded = None  # (key, XConvWeights) of kernel_weights()
+        self.weight_folds = 0  # folds made by kernel_weights()
 
     @property
     def out_channels(self) -> int:
@@ -75,13 +79,35 @@ class XConv(nn.Module):
             w.sx2, w.bx2 = self.X_2.BatchNorm_0.folded()
         return w
 
+    def _folded_tensors(self):
+        """Every parameter and buffer `weights()` reads."""
+        mods = [self.nn_fts_from_pts_0, self.nn_fts_from_pts, self.fts_conv]
+        if self.with_X_transformation:
+            mods += [self.X_0, self.X_1, self.X_2]
+        return [t for m in mods for t in (*m.parameters(), *m.buffers())]
+
+    def kernel_weights(self) -> XConvWeights:
+        """`weights()` with Wc arranged for the kernel where the module
+        lives on the card, kept until the `_version` or `data_ptr` of a
+        tensor it reads changes (an in-place update, `load_state_dict`, a
+        move to another device)."""
+        key = tuple((t._version, t.data_ptr()) for t in self._folded_tensors())
+        if self._folded is None or self._folded[0] != key:
+            with torch.no_grad():
+                w = self.weights()
+                if w.wc.is_cuda:
+                    w.wc_operand = xconv_weight_operand(w.wc, w.w1.shape[1])
+            self._folded = (key, w)
+            self.weight_folds += 1
+        return self._folded[1]
+
     def forward(self, pts, fts, qrs, nn_idx=None):
         """pts (B, N, 3), fts (B, N, Cp) or None, qrs (B, P, 3), optional
         precomputed (B, P, K*D) KNN indices -> (B, P, out_channels)."""
         if nn_idx is None:
             _, nn_idx = knn_point(self.K * self.D, pts, qrs)
         idx = nn_idx[:, :, :: self.D] if self.D > 1 else nn_idx
-        out = fused_xconv(pts, fts, qrs, idx.contiguous(), self.weights())
+        out = fused_xconv(pts, fts, qrs, idx.contiguous(), self.kernel_weights())
         if self.with_global:
             g = self.fts_global(self.fts_global_0(qrs))
             return torch.cat([g, out], dim=-1)

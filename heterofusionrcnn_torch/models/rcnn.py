@@ -60,6 +60,8 @@ class RcnnModel(nn.Module):
         super().__init__()
         lc = config.layers_config
         rc = config.rcnn_config
+        if config.compute_dtype != "float32":
+            raise NotImplementedError(f"compute_dtype {config.compute_dtype!r} is not ported")
         self.config = config
         self.num_classes = num_classes
         self.bev_z_max = bev_z_max

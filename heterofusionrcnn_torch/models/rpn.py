@@ -98,6 +98,8 @@ class RpnModel(nn.Module):
             raise NotImplementedError("only the PointCNN point extractor is ported")
         if not rpn.rpn_fixed_num_proposal_nms:
             raise NotImplementedError("the non-fixed NMS path is not ported")
+        if config.compute_dtype != "float32":
+            raise NotImplementedError(f"compute_dtype {config.compute_dtype!r} is not ported")
         self.config = config
         self.num_classes = num_classes
         self.save_rpn_feature = save_rpn_feature

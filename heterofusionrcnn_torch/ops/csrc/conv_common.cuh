@@ -1,6 +1,7 @@
-// Shared pieces of the tensor-core 3x3 conv kernels (conv.cu, convt.cu):
+// Shared pieces of the tensor-core kernels (conv.cu, convt.cu, xconv.cu):
 // the 3xTF32 split, Hopper's warpgroup MMA (`wgmma.mma_async`, sm_90a) on
-// TF32 with FP32 accumulators, the cp.async copies and the tile loaders.
+// TF32 with FP32 accumulators (A from registers or, for xconv.cu, from
+// shared memory), the cp.async copies, the tile loaders and mbarriers.
 //
 // 3xTF32. A TF32 product keeps 11 significant bits of each operand, about
 // three decimal digits, too few for a 2304-term sum held to 1e-4 of FP32.
@@ -225,6 +226,130 @@ __device__ __forceinline__ void wgmma_3xtf32(float (&tmp)[MT][N / 2],
       }
     }
   }
+}
+
+// --- A from shared memory (wgmma SS), mbarriers ---------------------------
+//
+// An A tile (64 rows x 8 k, one TF32 part) staged K-major exactly as a B
+// tile is: 8 x 4 core matrices (8 rows x 4 k, 128 contiguous bytes), the
+// two k halves 128 bytes apart and the 8-row groups 256 bytes apart, i.e.
+// [row / 8][k / 4][row % 8][k % 4] floats; `b_desc` describes it as well.
+
+// d (64 x 128) = A (64 x 8, desc a) B (8 x 128, desc b) + (accumulate ? d : 0).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Blocks until the phase of `bar` with the given parity has completed. A
+// freshly initialised barrier counts its phase "before 0" (parity 1) as
+// completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// --- thread block clusters (sm_90) ---------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of `p`'s counterpart in the cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t mapa(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// Arrive on an mbarrier of any CTA of the cluster (release, cluster scope).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(addr)
+               : "memory");
+}
+
+// mbar_wait with acquire at cluster scope, for phases completed by
+// arrivals from other CTAs of the cluster.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Makes mbarrier initialisations visible to the cluster.
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Every thread of every CTA of the cluster (a CTA barrier in a cluster of one).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;" :::
+                   "memory");
+}
+
+// Hand registers between warpgroups (sm_90a): every thread of a warpgroup
+// moves to N registers (a multiple of 8).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// Barrier `id` (1..15) over the `count` threads (a multiple of 32) that reach it.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 }  // namespace hfr

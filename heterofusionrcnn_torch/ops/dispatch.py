@@ -25,7 +25,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -74,11 +74,15 @@ def _nvcc() -> str:
 
 
 class CudaKernel:
-    """One `csrc/<name>.cu` source: its build, its C functions and its count
-    of launches (`launches`, raised by one in `launch` and nowhere else)."""
+    """C functions of one `csrc/<name>.cu` source: its build and their count
+    of launches (`launches`, raised by one in `launch` and nowhere else).
+    Two objects may share a source (and its library) to count two of its
+    kernels apart; `name` then tells them apart."""
 
-    def __init__(self, source: str, functions: Dict[str, Sequence], exact: bool):
+    def __init__(self, source: str, functions: Dict[str, Sequence], exact: bool,
+                 name: Optional[str] = None):
         self.source = CSRC_DIR / source
+        self._name = name
         self.functions = dict(functions)
         self.flags = _ARCH_FLAGS + _BASE_FLAGS + (_EXACT_FLAGS if exact else [])
         self.launches = 0
@@ -87,7 +91,7 @@ class CudaKernel:
 
     @property
     def name(self) -> str:
-        return self.source.stem
+        return self._name or self.source.stem
 
     def headers(self) -> List[Path]:
         """The headers the source includes with quotes, directly or through
@@ -109,7 +113,7 @@ class CudaKernel:
             h.update(header.name.encode())
             h.update(header.read_bytes())
         h.update(" ".join(self.flags).encode())
-        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def command(self, out: Path) -> List[str]:
         return [_nvcc(), *self.flags, "-o", str(out), str(self.source)]
@@ -140,10 +144,11 @@ class CudaKernel:
 def build_all(kernels: Iterable[CudaKernel]) -> None:
     """Compile every kernel whose library is missing, all at once."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    procs, seen = [], set()
     for k in kernels:
-        if k.lib_path.exists():
+        if k.lib_path.exists() or k.lib_path in seen:
             continue
+        seen.add(k.lib_path)
         tmp = k.lib_path.with_suffix(f".{os.getpid()}.tmp")
         procs.append(
             (k, tmp, subprocess.Popen(

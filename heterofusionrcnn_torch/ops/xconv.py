@@ -5,26 +5,44 @@ XConv block after the KNN (neighbour gather, the two lift DenseBNs, the
 K x K X-transform, X applied to [lifted coords | neighbour features], the
 composed separable conv, ELU and the folded output BatchNorm). On CUDA
 tensors it launches the kernel of `csrc/xconv.cu`, which gathers the
-neighbours itself and keeps every (P, K, C) intermediate on chip; on CPU
-tensors `fused_xconv_plain` runs the same algebra with PyTorch ops.
+neighbours itself, keeps every (P, K, C) intermediate on chip and runs the
+separable conv on the tensor cores in 3xTF32; on CPU tensors
+`fused_xconv_plain` runs the same algebra with PyTorch ops.
+
+The kernel takes the composed weight Wc as its GEMM's B operand, arranged
+by `xconv_weight_operand` (8-channel chunks in the kernel's contraction
+order, split into two TF32 parts, cut into wgmma B tiles). `XConv` keeps
+it with its folded weights (`XConvWeights.wc_operand`) until a weight
+changes; weights built without it are arranged per call. `plan_xconv`
+chooses how many blocks split the contraction of the few-query layers.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F_
 
+from heterofusionrcnn_torch.ops.conv import arrange_b
 from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, pointers, use_kernel
 from heterofusionrcnn_torch.ops.grouping import group_point
 
-XCONV_KERNEL = CudaKernel(
-    "xconv.cu", {"hfr_xconv": [P] * 23 + [I] * 8}, exact=False
-)
+XCONV_KERNEL = CudaKernel("xconv.cu", {"hfr_xconv": [P] * 24 + [I] * 11}, exact=False)
+# The second kernel of the split path, in the same library, counted apart.
+XCONV_EPILOGUE_KERNEL = CudaKernel("xconv.cu", {"hfr_xconv_epilogue": [P] * 4 + [I] * 3},
+                                   exact=False, name="xconv_epilogue")
 
 _KERNEL_K = (4, 8, 12)
+MAX_CF = 256          # lifted channels the kernel stages (kMaxCf)
+CHUNK = 8             # input channels per chunk (kCC)
+BLOCK_Q = 64          # queries per block (kBM)
+BLOCK_D = 256         # output channels per block (kBN)
+D_ALIGN = 128         # output channels of the arranged weight padded to this (kWN)
+MIN_SPLIT_CHUNKS = 4  # chunks a split takes at least
+MAX_SPLITS = 16
+H100_SMS = 132
 
 
 @dataclass
@@ -54,10 +72,96 @@ class XConvWeights:
     wx2: Optional[torch.Tensor] = None
     sx2: Optional[torch.Tensor] = None
     bx2: Optional[torch.Tensor] = None
+    wc_operand: Optional[torch.Tensor] = None  # xconv_weight_operand(wc, Cf), on the card
 
     @property
     def with_x(self) -> bool:
         return self.wx0 is not None
+
+
+def _chunks(n: int) -> int:
+    return -(-n // CHUNK)
+
+
+def chunk_order(nf: int, nch: int) -> List[int]:
+    """The kernel's contraction schedule (`lifted_at`): at position p the
+    chunk 0 .. nf - 1 (lifted channels 8 i ..) or nf + j (feature channels
+    8 j ..); the lifted chunks sit at positions floor(i nch / nf)."""
+    order = []
+    for p in range(nch):
+        i = -(-p * nf // nch)
+        order.append(i if i < nf and i * nch // nf == p else nf + p - i)
+    return order
+
+
+def xconv_gemm_weight(wc: torch.Tensor, cf: int) -> torch.Tensor:
+    """The kernel's B operand (K', Dp) from Wc (K, Cin, D), Cin = Cf + Cp:
+    contraction rows in the kernel's order (8-channel chunk in the order of
+    `chunk_order`, neighbour k, channel in chunk), the lifted and the
+    feature channels each padded to a multiple of 8, and D padded to
+    D_ALIGN, all with zeros."""
+    k, cin, d = wc.shape
+    cp = cin - cf
+    nf, nc = _chunks(cf), _chunks(cf) + _chunks(cp)
+    dp = -(-d // D_ALIGN) * D_ALIGN
+    w = wc.new_zeros(k, CHUNK * nc, dp)
+    w[:, :cf, :d] = wc[:, :cf]
+    w[:, CHUNK * nf:CHUNK * nf + cp, :d] = wc[:, cf:]
+    w = w.reshape(k, nc, CHUNK, dp)[:, chunk_order(nf, nc)]
+    return w.permute(1, 0, 2, 3).reshape(-1, dp)
+
+
+def xconv_weight_operand(wc: torch.Tensor, cf: int) -> torch.Tensor:
+    """What `csrc/xconv.cu` takes for Wc: `xconv_gemm_weight` split into
+    TF32 big and small parts and cut into wgmma B tiles (`ops/conv.py`,
+    `arrange_b`)."""
+    return arrange_b(xconv_gemm_weight(wc, cf))
+
+
+@dataclass(frozen=True)
+class XConvPlan:
+    """The kernel's grid: query tiles x channel tiles x contraction splits."""
+
+    qtiles: int
+    ntiles: int
+    splits: int
+
+    @property
+    def blocks(self) -> int:
+        return self.qtiles * self.ntiles * self.splits
+
+
+def plan_xconv(nq: int, k: int, cf: int, cp: int, d: int, num_sms: int = H100_SMS) -> XConvPlan:
+    """Tiles of BLOCK_Q queries x BLOCK_D channels, one block each (a block
+    fills an SM). Where they number fewer than the SMs, the contraction's
+    8-channel chunks are split over the fewest blocks that fill every SM,
+    each split keeping at least MIN_SPLIT_CHUNKS chunks and at most
+    MAX_SPLITS splits (`split_chunks` cuts them; the schedule of
+    `chunk_order` gives each its share of lifted chunks). `k` does not
+    change the plan: every neighbour of a chunk stays in one split."""
+    del k
+    qtiles = -(-nq // BLOCK_Q)
+    ntiles = -(-(-(-d // D_ALIGN) * D_ALIGN) // BLOCK_D)
+    base = qtiles * ntiles
+    most = max(1, min(MAX_SPLITS, (_chunks(cf) + _chunks(cp)) // MIN_SPLIT_CHUNKS))
+    splits = min(most, -(-num_sms // base)) if base < num_sms else 1
+    return XConvPlan(qtiles, ntiles, splits)
+
+
+def split_chunks(nchunks: int, splits: int) -> List[Tuple[int, int]]:
+    """The schedule positions [begin, end) of each split, as the kernel
+    forms them."""
+    return [(z * nchunks // splits, (z + 1) * nchunks // splits) for z in range(splits)]
+
+
+_num_sms = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _num_sms:
+        _num_sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _num_sms[idx]
 
 
 def fused_xconv(
@@ -72,6 +176,8 @@ def fused_xconv(
     Args:
       pts: (B, N, 3) source points; fts: (B, N, Cp) source features or None.
       qrs: (B, P, 3) query points; idx: (B, P, K) int32 neighbour indices.
+      w: folded weights; `w.wc_operand`, where set, must be
+        `xconv_weight_operand(w.wc, Cf)` (it is arranged here otherwise).
     Returns:
       (B, P, D) float32.
     """
@@ -82,29 +188,74 @@ def fused_xconv(
     cf = w.w1.shape[1]
     cp = 0 if fts is None else fts.shape[-1]
     d = w.wc.shape[2]
-    if k not in _KERNEL_K or d % 4:
-        raise ValueError(f"xconv kernel takes K in {_KERNEL_K} and D % 4 == 0, got K={k} D={d}")
+    if k not in _KERNEL_K or d % 4 or cf > MAX_CF:
+        raise ValueError(f"xconv kernel takes K in {_KERNEL_K}, D % 4 == 0 and Cf <= {MAX_CF}, "
+                         f"got K={k} D={d} Cf={cf}")
     if w.wc.shape[1] != cf + cp:
         raise ValueError(f"weights for Cin={w.wc.shape[1]}, inputs give {cf + cp}")
     for t in [pts, fts, qrs] + [getattr(w, f.name) for f in fields(w)]:
         if t is not None and t.dtype != torch.float32:
             raise ValueError(f"xconv kernel takes float32, got {t.dtype}")
+    nq = b * p
+    plan = plan_xconv(nq, k, cf, cp, d, _sm_count(pts.device))
+    if plan.splits > 1:
+        partial = torch.empty((plan.splits, nq, d), dtype=torch.float32, device=pts.device)
+        _launch_xconv(pts, fts, qrs, idx, w, None, partial, plan.splits)
+        return xconv_split_epilogue(partial, w.sc, w.bc).reshape(b, p, d)
+    out = torch.empty((b, p, d), dtype=torch.float32, device=pts.device)
+    _launch_xconv(pts, fts, qrs, idx, w, out, None, 1)
+    return out
+
+
+def _launch_xconv(pts, fts, qrs, idx, w: XConvWeights, out, partial, splits: int) -> None:
+    """One launch of `csrc/xconv.cu`: the result into `out` (splits == 1)
+    or the splits' raw partial sums into `partial`."""
+    b, n, _ = pts.shape
+    _, p, k = idx.shape
+    cf = w.w1.shape[1]
+    cp = 0 if fts is None else fts.shape[-1]
     pts, qrs, idx = pts.contiguous(), qrs.contiguous(), idx.to(torch.int32).contiguous()
     fts = None if fts is None else fts.contiguous()
-    out = torch.empty((b, p, d), dtype=torch.float32, device=pts.device)
+    wt = w.wc_operand if w.wc_operand is not None else xconv_weight_operand(w.wc, cf)
     ws = [w.w1, w.s1, w.b1, w.w2, w.s2, w.b2, w.wx0, w.sx0, w.bx0,
-          w.wx1, w.sx1, w.bx1, w.wx2, w.sx2, w.bx2, w.wc, w.sc, w.bc]
+          w.wx1, w.sx1, w.bx1, w.wx2, w.sx2, w.bx2, wt, w.sc, w.bc]
     ws = [None if t is None else t.contiguous() for t in ws]
+    vec4 = int(fts is not None and cp % 4 == 0 and fts.data_ptr() % 16 == 0)
     XCONV_KERNEL.launch(
-        "hfr_xconv", *pointers(pts, fts, qrs, idx, *ws, out),
-        I(b), I(n), I(p), I(k), I(cf), I(cp), I(d), I(int(w.with_x)),
+        "hfr_xconv", *pointers(pts, fts, qrs, idx, *ws, out, partial),
+        I(b), I(n), I(p), I(k), I(cf), I(cp), I(w.wc.shape[2]), I(wt.shape[2] * 8),
+        I(int(w.with_x)), I(splits), I(vec4),
+    )
+
+
+def xconv_split_epilogue(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tensor) -> torch.Tensor:
+    """BNc(ELU(sum of the splits)) of (S, M, D) partial sums -> (M, D): the
+    second kernel of the split path on CUDA tensors (splits summed in
+    order), the plain version on CPU tensors."""
+    if not use_kernel(partial, sc, bc):
+        return xconv_split_epilogue_plain(partial, sc, bc)
+    s, m, d = partial.shape
+    if d % 4 or partial.dtype != torch.float32:
+        raise ValueError(f"split epilogue takes float32 with D % 4 == 0, got D={d}")
+    out = torch.empty((m, d), dtype=torch.float32, device=partial.device)
+    XCONV_EPILOGUE_KERNEL.launch(
+        "hfr_xconv_epilogue", *pointers(partial.contiguous(), sc.contiguous(), bc.contiguous(),
+                                        out),
+        I(s), I(m), I(d),
     )
     return out
 
 
-def fused_xconv_plain(pts, fts, qrs, idx, w: XConvWeights) -> torch.Tensor:
-    """Plain PyTorch version of the fused XConv (same algebra as the kernel
-    and as `pallas_xconv.fused_xconv`)."""
+def xconv_split_epilogue_plain(partial, sc, bc) -> torch.Tensor:
+    out = partial[0]
+    for z in range(1, partial.shape[0]):
+        out = out + partial[z]
+    return F_.elu(out) * sc + bc
+
+
+def xconv_gemm_operand(pts, fts, qrs, idx, w: XConvWeights) -> torch.Tensor:
+    """(X @ in) of the plain version, (B, P, K, Cin): the A operand of the
+    separable conv's GEMM (contraction (k, c), k-major)."""
     b, p, k = idx.shape
     local = group_point(pts, idx) - qrs[:, :, None, :]  # (B, P, K, 3)
     h = F_.elu(local @ w.w1) * w.s1 + w.b1
@@ -117,6 +268,14 @@ def fused_xconv_plain(pts, fts, qrs, idx, w: XConvWeights) -> torch.Tensor:
         x2 = torch.einsum("bpkc,kcj->bpcj", x1.reshape(b, p, k, k), w.wx2)
         x2 = x2.reshape(b, p, k * k) * w.sx2 + w.bx2
         fin = torch.einsum("bpkj,bpjc->bpkc", x2.reshape(b, p, k, k), fin)
+    return fin
+
+
+def fused_xconv_plain(pts, fts, qrs, idx, w: XConvWeights) -> torch.Tensor:
+    """Plain PyTorch version of the fused XConv (same algebra as the kernel
+    and as `pallas_xconv.fused_xconv`)."""
+    b, p, k = idx.shape
+    fin = xconv_gemm_operand(pts, fts, qrs, idx, w)
     cin = fin.shape[-1]
     out = fin.reshape(b, p, k * cin) @ w.wc.reshape(k * cin, -1)
     return F_.elu(out) * w.sc + w.bc

@@ -33,7 +33,13 @@ from heterofusionrcnn_torch.ops.sampling import (
     farthest_point_sample,
     farthest_point_sample_plain,
 )
-from heterofusionrcnn_torch.ops.xconv import XConvWeights, fused_xconv, fused_xconv_plain
+from heterofusionrcnn_torch.ops.xconv import (
+    XCONV_EPILOGUE_KERNEL,
+    XConvWeights,
+    fused_xconv,
+    fused_xconv_plain,
+    plan_xconv,
+)
 
 
 @pytest.fixture
@@ -153,6 +159,54 @@ def test_xconv_kernel_matches_plain(cuda, k, cf, cp, d, with_x):
     torch.testing.assert_close(fused_xconv(pts, fts, qrs, idx, w),
                                fused_xconv_plain(pts, fts, qrs, idx, w), rtol=1e-4, atol=1e-4)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,cf,cp,d,b,p,with_x,fscale", [
+    (4, 128, 512, 512, 2, 300, True, 1.0),      # K = 4, the RCNN's first layer
+    (8, 64, 256, 256, 2, 200, False, 1.0),      # K = 8 without the X-transform
+    (12, 128, 512, 1024, 1, 150, True, 1.0),    # K = 12, D = 1024
+    (12, 256, 1280, 1024, 1, 100, True, 1.0),   # Cf 256, Cin 1536, contraction 18432
+    (8, 256, 1280, 1024, 4, 64, True, 1.0),     # few queries: the split path
+    (8, 128, 512, 1024, 2, 128, False, 1.0),    # the split path without X
+    (8, 64, 3, 132, 1, 70, False, 1.0),         # Cp % 4 != 0, D not a multiple of 128
+    (8, 64, 64, 256, 2, 100, True, 1e3),        # features x 1e3, Wc x 1e-3
+])
+def test_xconv_kernel_shapes_match_plain(cuda, k, cf, cp, d, b, p, with_x, fscale):
+    """The tensor-core XConv against the plain version within 1e-4 + 1e-4
+    |plain| (3xTF32 products, FP32 sums in another order), at each K, the
+    widest Cf / Cin / D, the few-query split path and large features. The
+    large-feature case scales Wc down as much, so the outputs keep the
+    gate's scale (as the conv card test does). Wc is scaled as He's init
+    scales a weight, to std 1 / sqrt(K Cin): with `_xconv_params`' Cin-blind
+    scale the K = 12 cases reach pre-activations near 1e3, where the gate's
+    absolute 1e-4 is about one FP32 ulp and the plain FP32 version is
+    itself 4.7e-4 off the exact sum."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    n = 400
+    params = _xconv_params(rng, k, cf, cf + cp, 2, d)
+    w = _torch_weights(params, with_x)
+    w.wc = w.wc / (w.wc.std() * np.sqrt(k * (cf + cp)) * fscale)
+    for f in w.__dataclass_fields__:
+        if getattr(w, f) is not None:
+            setattr(w, f, getattr(w, f).to(cuda))
+    pts = torch.from_numpy(rng.standard_normal((b, n, 3)).astype(np.float32)).to(cuda)
+    qrs = torch.from_numpy(rng.standard_normal((b, p, 3)).astype(np.float32)).to(cuda)
+    fts = torch.from_numpy((rng.standard_normal((b, n, cp)) * fscale).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, n, (b, p, k)).astype(np.int32)).to(cuda)
+    splits = plan_xconv(b * p, k, cf, cp, d, torch.cuda.get_device_properties(cuda)
+                        .multi_processor_count).splits
+    before = XCONV_EPILOGUE_KERNEL.launches
+    got = fused_xconv(pts, fts, qrs, idx, w)
+    torch.cuda.synchronize()
+    assert XCONV_EPILOGUE_KERNEL.launches - before == (1 if splits > 1 else 0)
+    if b * p <= 256:
+        assert splits > 1
+    want = fused_xconv_plain(pts, fts, qrs, idx, w)
+    assert got.shape == want.shape
+    err = (got - want).abs()
+    assert bool((err <= 1e-4 + 1e-4 * want.abs()).all()), float(err.max())
 
 def _conv_case(rng, cuda, b, cin, cout, h, w, transpose, xscale=1.0):
     x = (rng.standard_normal((b, cin, h, w)) * xscale).astype(np.float32)

@@ -5,7 +5,7 @@ names are computed, nothing is compiled."""
 
 from __future__ import annotations
 
-from heterofusionrcnn_torch.ops import conv, grouping
+from heterofusionrcnn_torch.ops import conv, dispatch, grouping, xconv
 from heterofusionrcnn_torch.ops.dispatch import CudaKernel
 
 
@@ -32,6 +32,31 @@ def test_nested_header_is_hashed(tmp_path):
 
 
 def test_conv_kernels_include_their_common_header():
-    for kern in (conv.CONV_KERNEL, conv.CONVT_KERNEL):
+    for kern in (conv.CONV_KERNEL, conv.CONVT_KERNEL, xconv.XCONV_KERNEL):
         assert [p.name for p in kern.headers()] == ["conv_common.cuh"]
     assert grouping.KNN_KERNEL.headers() == []
+
+
+def test_kernels_of_one_source_share_a_library_and_count_apart(tmp_path, monkeypatch):
+    """The XConv and its split epilogue live in one source: one library, one
+    nvcc process for both, a launch count each."""
+    main = xconv.XCONV_KERNEL
+    epi = xconv.XCONV_EPILOGUE_KERNEL
+    assert main.lib_path == epi.lib_path and main.name != epi.name
+    commands = []
+
+    class Proc:
+        returncode = 0
+
+        def __init__(self, cmd, **kwargs):
+            commands.append(cmd)
+            open(cmd[cmd.index("-o") + 1], "w").close()
+
+        def communicate(self):
+            return "", None
+
+    monkeypatch.setattr(dispatch, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(dispatch, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(dispatch.subprocess, "Popen", Proc)
+    dispatch.build_all([main, epi])
+    assert len(commands) == 1 and main.lib_path.exists()

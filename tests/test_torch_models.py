@@ -158,3 +158,19 @@ def test_rcnn_and_two_stage(monkeypatch, shared_map):
     box_tol = dict(rtol=1e-3, atol=1e-3) if shared_map else dict(rtol=1e-4, atol=5e-4)
     _close(got["final_boxes"], want["final_boxes"], **box_tol)
     assert int(got["num_boxes_before_padding"].min()) > 0
+
+
+@pytest.mark.parametrize("stage", ["rpn", "rcnn"])
+def test_unported_compute_dtype_raises(stage):
+    """The JAX models run bf16 for compute_dtype "bfloat16"; the port has no
+    bf16 path yet, so it refuses the option instead of running FP32."""
+    if stage == "rpn":
+        cfg = torch_presets.rpn_unittest().model_config
+        cfg.compute_dtype = "bfloat16"
+        with pytest.raises(NotImplementedError, match="compute_dtype"):
+            RpnModel(cfg, 3, CLUSTER_SIZES)
+    else:
+        cfg = torch_presets.rcnn_unittest().model_config
+        cfg.compute_dtype = "bfloat16"
+        with pytest.raises(NotImplementedError, match="compute_dtype"):
+            RcnnModel(cfg, 3, CLUSTER_SIZES, 64 + 8)
