@@ -39,8 +39,12 @@
    call's time, TFLOP/s, tile and split beside one FP32 `torch.matmul` of
    its composed product on the materialised (B*P, K*Cin) operand (a
    yardstick the port never calls), and computes FPS's latency
-   floor (npoint times the per-iteration time of the FPS kernel on 1024
-   points, one a thread) for the report file.
+   floor (npoint times the per-iteration latency of the FPS kernel on 1024
+   points, one CTA) for the report file. Prints each FPS and NMS call's
+   ms, its cluster size and threads a CTA and its us per iteration or keep
+   step, then sweeps each call over clusters of 1, 2, 4, 8 and 16 CTAs
+   (each bit-exact against the plain version, each timed; into
+   chip_smoke.json under the kernel's "sweep").
 6. Checks the outputs: finite, expected shapes, sane counts, and the same
    detector at small width on the card agreeing with its CPU run.
 7. The KITTI entry point: saves seed-0 random weights (random BatchNorm
@@ -51,8 +55,8 @@
    split val, full width, and checks one prediction file of finite rows per
    frame, 26 convs, 6 transposed convs and 1 crop launched on every frame
    (the RCNN runs its own VGG pass, the CLI's default), each of those
-   calls and every fused XConv and split-epilogue call held against its
-   plain version as in step 5, and the evaluator's AP lines.
+   calls and every fused XConv, split-epilogue, FPS and NMS call held
+   against its plain version as in step 5, and the evaluator's AP lines.
 
 Prints a {"kernels": [...]} JSON line, then the result as its last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -113,6 +117,7 @@ SLICE1 = ("knn", "fps", "nms", "xconv", "xconv_epilogue")
 SWITCHED_PER_FORWARD = {"conv": 13, "convt": 3, "crop": 1}
 SWITCHED_PER_FRAME = {"conv": 26, "convt": 6, "crop": 1}
 KITTI_DIR = os.path.join(ROOT, "tests", "fixtures", "kitti")
+CLUSTERS = (1, 2, 4, 8, 16)    # cluster sizes the FPS and NMS kernels take
 
 
 def card_line() -> str:
@@ -222,6 +227,25 @@ def check_switched(name, args, kwargs):
     return float(err.max())
 
 
+def check_index_exact(name, args, kwargs):
+    """One FPS or NMS call against its plain version, bit for bit."""
+    import torch
+
+    from heterofusionrcnn_torch.ops import nms, sampling
+
+    if name == "fps":
+        xyz, npoint = args
+        got = sampling.farthest_point_sample(xyz, npoint)
+        want = sampling.farthest_point_sample_plain(xyz, npoint)
+    else:
+        bev, scores, thresh, keep = args[:4]
+        valid = args[4] if len(args) > 4 else kwargs.get("valid_mask")
+        got = nms.oriented_nms(bev, scores, thresh, keep, valid)[0]
+        want = nms.oriented_nms_plain(bev, scores, thresh, keep, valid)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} differs from its plain version at {tuple(args[0].shape)}")
+
+
 def check_xconv(pts, fts, qrs, idx, w):
     """One fused XConv call against its plain version within XCONV_ATOL +
     XCONV_RTOL |plain|; returns the max |kernel - plain|."""
@@ -270,6 +294,28 @@ def nms_iou_count(boxes, scores, thresh, keep, valid):
     return total
 
 
+def sweep(shape, want, rounds, fit, launch, reps):
+    """One FPS or NMS call on clusters of every size the kernel takes, each
+    with its default threads: bit-exact against the plain version's `want`
+    and timed (`rounds` iterations or keep steps a launch). A size of which
+    not one cluster fits the card is recorded and not launched."""
+    import torch
+
+    out = []
+    for c in CLUSTERS:
+        rec = dict(shape=shape, cluster=c, fit=fit(c))
+        if rec["fit"]:
+            if not torch.equal(launch(c), want):
+                raise AssertionError(f"{shape} differs from the plain version on clusters of {c}")
+            rec["ms"] = cuda_ms(lambda: launch(c), reps)
+            rec["us_per_round"] = rec["ms"] * 1e3 / max(rounds, 1)
+        out.append(rec)
+    print(f"  clusters of {'/'.join(str(c) for c in CLUSTERS)}: "
+          + " / ".join(f"{rec['ms']:.4f}" if rec["fit"] else "does not fit" for rec in out)
+          + " ms, each exact", flush=True)
+    return out
+
+
 def check_kernels(calls, calls_on, reps):
     """Kernel vs plain on every recorded call (`calls`: the switches-off
     forward, `calls_on`: the switched kernels of the switches-on forward);
@@ -278,8 +324,10 @@ def check_kernels(calls, calls_on, reps):
     import torch.nn.functional as F
 
     from heterofusionrcnn_torch.ops import conv, cropping, grouping, nms, sampling, xconv
+    from heterofusionrcnn_torch.ops.dispatch import cluster_threads
 
     rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def row(name, source):
         rows[name] = dict(name=name, route="cuda", source=source,
@@ -315,15 +363,19 @@ def check_kernels(calls, calls_on, reps):
         r["calls"].append(dict(shape=f"{b}x{p}q x {n} k{k}", ms=ms, plain_ms=pms, library_ms=lms))
 
     # FPS: 9 FP32 operations (distance + min) per point per iteration. Its
-    # real floor is latency, npoint dependent block-wide argmaxes: one
-    # iteration is timed on 1024 points (one a thread, B=1, npoint=1024).
+    # real floor is latency, npoint dependent argmaxes over the set: one
+    # iteration of the kernel is timed on 1024 points (B=1, npoint=1024, the
+    # plan's one CTA) and npoint of them make each call's latency floor.
+    # Every call runs again on clusters of every size (`sweep`).
     r = row("fps", "heterofusionrcnn_torch/ops/csrc/fps.cu")
     probe = torch.rand((1, 1024, 3), generator=torch.Generator().manual_seed(SEED)).cuda()
     r["iteration_us"] = cuda_ms(lambda: sampling.farthest_point_sample(probe, 1024), reps) / 1024 * 1e3
     r["latency_ms"] = 0.0
+    r["sweep"] = []
     for (xyz, npoint), _ in calls["farthest_point_sample"]:
         got = sampling.farthest_point_sample(xyz, npoint)
-        if not torch.equal(got, sampling.farthest_point_sample_plain(xyz, npoint)):
+        want = sampling.farthest_point_sample_plain(xyz, npoint)
+        if not torch.equal(got, want):
             raise AssertionError(f"fps picks differ at {tuple(xyz.shape)} -> {npoint}")
         ms = cuda_ms(lambda: sampling.farthest_point_sample(xyz, npoint), reps)
         pms = cuda_ms(lambda: sampling.farthest_point_sample_plain(xyz, npoint), 1)
@@ -332,11 +384,23 @@ def check_kernels(calls, calls_on, reps):
         r["latency_ms"] += npoint * r["iteration_us"] * 1e-3
         r["ms"] += ms
         r["plain_ms"] += pms
-        r["calls"].append(dict(shape=f"{b}x{n}->{npoint}", ms=ms, plain_ms=pms))
+        c, threads = sampling.fps_plan(b, n, sms, lambda c, t: sampling.fps_clusters(n, c, t) > 0)
+        shape = f"{b}x{n}->{npoint}"
+        per_it = ms * 1e3 / max(npoint - 1, 1)
+        r["calls"].append(dict(shape=shape, ms=ms, plain_ms=pms, cluster=c, threads=threads,
+                               us_per_iteration=per_it))
+        print(f"fps {shape}: {ms:.4f} ms on clusters of {c} x {threads} threads, "
+              f"{per_it:.3f} us per iteration", flush=True)
+        r["sweep"] += sweep(
+            shape, want, npoint - 1,
+            lambda c: sampling.fps_clusters(n, c, cluster_threads(
+                n, c, sampling.FPS_POINTS_PER_THREAD)),
+            lambda c: sampling._fps_kernel(xyz, npoint, c), reps)
 
     # NMS: NMS_OPS_PER_IOU per rotated IoU, counted for the IoUs this data
-    # needs.
+    # needs. Every call runs again on clusters of every size (`sweep`).
     r = row("nms", "heterofusionrcnn_torch/ops/csrc/nms.cu")
+    r["sweep"] = []
     for a, kw in calls["oriented_nms"]:
         bev, scores, thresh, keep = a[:4]
         valid = a[4] if len(a) > 4 else kw.get("valid_mask")
@@ -351,7 +415,15 @@ def check_kernels(calls, calls_on, reps):
         add_bound(r, b * n * 25 + b * keep * 4, float(NMS_OPS_PER_IOU * ious))
         r["ms"] += ms
         r["plain_ms"] += pms
-        r["calls"].append(dict(shape=f"{b}x{n}->{keep}@{thresh}", ms=ms, plain_ms=pms, ious=ious))
+        c, threads = nms.nms_plan(b, n, sms, lambda c, t: nms.nms_clusters(n, c, t) > 0)
+        shape = f"{b}x{n}->{keep}@{thresh}"
+        r["calls"].append(dict(shape=shape, ms=ms, plain_ms=pms, ious=ious, cluster=c,
+                               threads=threads, us_per_step=ms * 1e3 / keep))
+        print(f"nms {shape}: {ms:.4f} ms on clusters of {c} x {threads} threads, "
+              f"{ms * 1e3 / keep:.3f} us per keep step, {ious} IoUs", flush=True)
+        r["sweep"] += sweep(
+            shape, want, keep, lambda c: nms.nms_clusters(n, c, cluster_threads(n, c)),
+            lambda c: nms._nms_kernel(bev, scores, thresh, keep, valid, c), reps)
 
     # Fused XConv: FLOPs of lift-1, lift-2, X-net, X @ in and the composed
     # separable conv, each three TF32 tensor-core products (3xTF32; the
@@ -364,7 +436,6 @@ def check_kernels(calls, calls_on, reps):
     r["fp32_bound_ms"] = 0.0
     r["matmul_ms"] = 0.0
     torch.backends.cuda.matmul.allow_tf32 = False
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (pts, fts, qrs, idx, w), _ in calls["fused_xconv"]:
         r["max_abs_err"] = max(r["max_abs_err"], check_xconv(pts, fts, qrs, idx, w))
         ms = cuda_ms(lambda: xconv.fused_xconv(pts, fts, qrs, idx, w), reps)
@@ -636,9 +707,9 @@ def _kitti_run(kernels, out_root, ckpt):
 
     TwoStageDetector.forward = counted
     switched = {k: KERNEL_OPS[k] for k in SWITCHED_PER_FRAME}
-    xconv_ops = (KERNEL_OPS["xconv"], KERNEL_OPS["xconv_epilogue"])
+    other_ops = tuple(KERNEL_OPS[k] for k in ("xconv", "xconv_epilogue", "fps", "nms"))
     try:
-        with recording(tuple(switched.values()) + xconv_ops) as calls:
+        with recording(tuple(switched.values()) + other_ops) as calls:
             result = run_inference.main([
                 "--rpn_config", "rpn_multiclass", "--rcnn_config", "rcnn_multiclass",
                 "--rpn_checkpoint", os.path.join(ckpt, "rpn"),
@@ -675,6 +746,15 @@ def _kitti_run(kernels, out_root, ckpt):
         if len(calls[op]) != sum(launches[name] for launches in per_frame):
             raise AssertionError(f"{name}: {len(calls[op])} recorded calls, launches {per_frame}")
         result["max_abs_err"][name] = max(check(*a) for a, _ in calls[op])
+    # Every FPS and NMS call of every frame, bit for bit.
+    result["index_exact_calls"] = {}
+    for name in ("fps", "nms"):
+        op = KERNEL_OPS[name]
+        if len(calls[op]) != sum(launches[name] for launches in per_frame):
+            raise AssertionError(f"{name}: {len(calls[op])} recorded calls, launches {per_frame}")
+        for a, kw in calls[op]:
+            check_index_exact(name, a, kw)
+        result["index_exact_calls"][name] = len(calls[op])
     del calls
     result["launches_per_frame"] = per_frame
     print("KITTI frames ms: " + " ".join(f"{t:.2f}" for t in result["frame_ms"]), flush=True)

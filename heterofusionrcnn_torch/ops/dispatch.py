@@ -25,7 +25,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -179,3 +179,44 @@ def pointers(*tensors: torch.Tensor) -> List[P]:
             raise ValueError("kernel inputs must be contiguous")
         out.append(P(t.data_ptr()))
     return out
+
+
+# Thread-block clusters (fps.cu, nms.cu): a set of items runs on a cluster
+# of 1, 2, 4, 8 or 16 CTAs on neighbouring SMs (16 is Hopper's largest,
+# non-portable, size).
+MAX_CLUSTER = 16
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (torch keeps the
+    properties it has read)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def cluster_threads(n: int, cluster: int, per_thread: int = 1) -> int:
+    """Threads of each CTA when n items are shared over `cluster` CTAs,
+    `per_thread` items a thread: whole warps, at most 1024."""
+    share = -(-n // cluster)
+    return min(1024, 32 * -(-share // (32 * per_thread)))
+
+
+def cluster_plan(b: int, n: int, sms: int, per_cta: int, per_thread: int,
+                 fits: Callable[[int, int], bool], least: int = 1) -> Tuple[int, int]:
+    """(cluster size C, threads a CTA) for b sets of n items.
+
+    C starts at `least` and doubles while a CTA's share of a set holds more
+    than `per_cta` items and the b * 2C CTAs still fit on the `sms` SMs,
+    up to MAX_CLUSTER; it then halves (not below `least`) while
+    `fits(C, threads)` says that not one such cluster fits on the card (the
+    kernel's occupancy query). Each CTA has `per_thread` items a thread
+    (`cluster_threads`). Raises when no cluster fits.
+    """
+    c = least
+    while c < MAX_CLUSTER and -(-n // c) > per_cta and b * 2 * c <= sms:
+        c *= 2
+    while c > least and not fits(c, cluster_threads(n, c, per_thread)):
+        c //= 2
+    threads = cluster_threads(n, c, per_thread)
+    if not fits(c, threads):
+        raise RuntimeError(f"no cluster of {c} CTAs fits for sets of {n} items")
+    return c, threads

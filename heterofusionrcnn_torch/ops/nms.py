@@ -3,23 +3,43 @@
 Port of heterofusionrcnn_tpu/ops/nms.py (`oriented_nms`,
 `oriented_nms_boxes_3d`). Where the JAX models vmap a one-frame NMS over
 the batch, these functions take the batch: on CUDA tensors every frame runs
-in one launch of the kernel of `csrc/nms.cu`; on CPU tensors
-`oriented_nms_plain` runs.
+in one launch of the kernel of `csrc/nms.cu`, each frame on a thread-block
+cluster whose size `nms_plan` picks; on CPU tensors `oriented_nms_plain`
+runs.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from heterofusionrcnn_torch.core.geometry import boxes_3d_to_bev
 from heterofusionrcnn_torch.core.rotated_iou import _EPS, bev_corners_soa, edges_in_poly_integral
-from heterofusionrcnn_torch.ops.dispatch import F, I, P, CudaKernel, pointers, use_kernel
+from heterofusionrcnn_torch.ops.dispatch import (
+    F,
+    I,
+    P,
+    CudaKernel,
+    cluster_plan,
+    cluster_threads,
+    pointers,
+    sm_count,
+    use_kernel,
+)
 
 NMS_KERNEL = CudaKernel(
-    "nms.cu", {"hfr_nms": [P, P, P, P, P, I, I, I, F]}, exact=True
+    "nms.cu",
+    {"hfr_nms": [P, P, P, P, I, I, I, F, I, I], "hfr_nms_clusters": [I, I, I]},
+    exact=True,
 )
+# Boxes a CTA takes before a frame is spread over a larger cluster (one a
+# thread: a box's IoU is ~1130 operations, worth a thread of its own).
+NMS_BOXES_PER_CTA = 576
+# Boxes whose centre, cos, sin and extents (24 bytes each) fit in one CTA's
+# shared memory on Hopper (227 KB) beside the cluster argmax's slots (~3 KB).
+NMS_MAX_SHARE = (232448 - 4096) // 24
 
 
 def oriented_nms(
@@ -40,22 +60,61 @@ def oriented_nms(
       keep_idx (B, max_keep) int32, -1 padded, in keep order (descending
       score, lowest index on ties); keep_valid (B, max_keep) bool.
     """
-    b, n, _ = bev_boxes.shape
-    if not use_kernel(bev_boxes, scores):
+    if use_kernel(bev_boxes, scores):
+        keep = _nms_kernel(bev_boxes, scores, iou_thresh, max_keep, valid_mask)
+    else:
         keep = oriented_nms_plain(bev_boxes, scores, iou_thresh, max_keep, valid_mask)
-        return keep, keep >= 0
-    if n > 32 * 1024:
-        raise ValueError(f"nms kernel takes N <= 32768 boxes per frame, got {n}")
+    return keep, keep >= 0
+
+
+def nms_plan(b: int, n: int, sms: int, fits) -> Tuple[int, int]:
+    """(cluster size, threads a CTA) of the kernel for b frames of n boxes
+    on a card of `sms` SMs; `fits(c, threads)` is the kernel's occupancy
+    query. The cluster is at least large enough for each CTA's share to fit
+    its shared memory."""
+    least = 1
+    while -(-n // least) > NMS_MAX_SHARE:
+        least *= 2
+    return cluster_plan(b, n, sms, NMS_BOXES_PER_CTA, 1, fits, least)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(b: int, n: int, device: torch.device) -> Tuple[int, int]:
+    """`nms_plan` on `device` with the kernel's occupancy query, once per shape."""
+    return nms_plan(b, n, sm_count(device), lambda c, t: nms_clusters(n, c, t) > 0)
+
+
+@functools.lru_cache(maxsize=None)
+def nms_clusters(n: int, cluster: int, threads: int) -> int:
+    """Clusters of the kernel's launch for frames of n boxes that fit on the
+    card at once (0: none)."""
+    fit = NMS_KERNEL.load().hfr_nms_clusters(n, cluster, threads)
+    if fit < 0:
+        raise RuntimeError(f"nms: occupancy query failed ({-fit}) at N={n} cluster={cluster}")
+    return fit
+
+
+def _nms_kernel(bev_boxes, scores, iou_thresh, max_keep, valid_mask,
+                cluster: Optional[int] = None, threads: Optional[int] = None) -> torch.Tensor:
+    """One launch of the kernel, each frame on a cluster of `cluster` CTAs
+    of `threads` threads (default: `nms_plan`'s choice; for a given cluster,
+    one box a thread up to 1024); returns keep_idx."""
+    b, n, _ = bev_boxes.shape
+    if n > 32 * 1024 or max_keep < 1:
+        raise ValueError(f"nms kernel takes N <= 32768 boxes per frame and max_keep >= 1, "
+                         f"got N={n} max_keep={max_keep}")
+    if cluster is None:
+        cluster, threads = _launch_plan(b, n, bev_boxes.device)
+    threads = threads or cluster_threads(n, cluster)
     boxes = bev_boxes.float().contiguous()
     sc = scores.float().contiguous()
     valid = None if valid_mask is None else valid_mask.to(torch.uint8).contiguous()
-    quads = torch.empty((b, n, 9), dtype=torch.float32, device=boxes.device)
     keep = torch.empty((b, max_keep), dtype=torch.int32, device=boxes.device)
     NMS_KERNEL.launch(
-        "hfr_nms", *pointers(boxes, sc, valid, quads, keep),
-        I(b), I(n), I(max_keep), F(iou_thresh),
+        "hfr_nms", *pointers(boxes, sc, valid, keep),
+        I(b), I(n), I(max_keep), F(iou_thresh), I(cluster), I(threads),
     )
-    return keep, keep >= 0
+    return keep
 
 
 def oriented_nms_plain(bev_boxes, scores, iou_thresh, max_keep, valid_mask=None):

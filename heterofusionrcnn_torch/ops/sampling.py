@@ -2,31 +2,86 @@
 
 Port of heterofusionrcnn_tpu/ops/sampling.py (`farthest_point_sample`,
 `gather_point`). `farthest_point_sample` launches the CUDA kernel of
-`csrc/fps.cu` on CUDA tensors and runs `farthest_point_sample_plain` on
-CPU tensors.
+`csrc/fps.cu` on CUDA tensors (each set on a thread-block cluster whose
+size `fps_plan` picks) and runs `farthest_point_sample_plain` on CPU
+tensors.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Optional, Tuple
+
 import torch
 
-from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, pointers, use_kernel
+from heterofusionrcnn_torch.ops.dispatch import (
+    I,
+    P,
+    CudaKernel,
+    cluster_plan,
+    cluster_threads,
+    pointers,
+    sm_count,
+    use_kernel,
+)
 
-FPS_KERNEL = CudaKernel("fps.cu", {"hfr_fps": [P, P, I, I, I]}, exact=True)
+FPS_KERNEL = CudaKernel(
+    "fps.cu", {"hfr_fps": [P, P, I, I, I, I, I], "hfr_fps_clusters": [I, I, I]}, exact=True
+)
+# Points a CTA takes before a set is spread over a larger cluster, and
+# points a thread (tools/cluster_sweep.py on an H100: at 2-8 points a
+# thread a CTA's barrier and reductions cost less than at 1).
+FPS_POINTS_PER_CTA = 1024
+FPS_POINTS_PER_THREAD = 4
 
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Iterative max-min FPS: (B, N, 3) float32 -> (B, npoint) int32 indices.
     Slot 0 is point 0; each next slot is the point farthest (squared
     distance) from the picked set, the lowest index on ties."""
-    b, n, _ = xyz.shape
     if not use_kernel(xyz):
         return farthest_point_sample_plain(xyz, npoint)
-    if xyz.dtype != torch.float32 or n > 32768:
-        raise ValueError(f"fps kernel takes float32 with N <= 32768, got {xyz.dtype} N={n}")
+    return _fps_kernel(xyz, npoint)
+
+
+def fps_plan(b: int, n: int, sms: int, fits) -> Tuple[int, int]:
+    """(cluster size, threads a CTA) of the kernel for b sets of n points on
+    a card of `sms` SMs; `fits(c, threads)` is the kernel's occupancy query."""
+    return cluster_plan(b, n, sms, FPS_POINTS_PER_CTA, FPS_POINTS_PER_THREAD, fits)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(b: int, n: int, device: torch.device) -> Tuple[int, int]:
+    """`fps_plan` on `device` with the kernel's occupancy query, once per shape."""
+    return fps_plan(b, n, sm_count(device), lambda c, t: fps_clusters(n, c, t) > 0)
+
+
+@functools.lru_cache(maxsize=None)
+def fps_clusters(n: int, cluster: int, threads: int) -> int:
+    """Clusters of the kernel's launch for sets of n points that fit on the
+    card at once (0: none)."""
+    fit = FPS_KERNEL.load().hfr_fps_clusters(n, cluster, threads)
+    if fit < 0:
+        raise RuntimeError(f"fps: occupancy query failed ({-fit}) at N={n} cluster={cluster}")
+    return fit
+
+
+def _fps_kernel(xyz: torch.Tensor, npoint: int, cluster: Optional[int] = None,
+                threads: Optional[int] = None) -> torch.Tensor:
+    """One launch of the kernel, each set on a cluster of `cluster` CTAs of
+    `threads` threads (default: `fps_plan`'s choice; for a given cluster,
+    FPS_POINTS_PER_THREAD points a thread)."""
+    b, n, _ = xyz.shape
+    if xyz.dtype != torch.float32 or n > 32768 or npoint < 1:
+        raise ValueError(f"fps kernel takes float32 with N <= 32768 and npoint >= 1, "
+                         f"got {xyz.dtype} N={n} npoint={npoint}")
+    if cluster is None:
+        cluster, threads = _launch_plan(b, n, xyz.device)
+    threads = threads or cluster_threads(n, cluster, FPS_POINTS_PER_THREAD)
     xyz = xyz.contiguous()
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
-    FPS_KERNEL.launch("hfr_fps", *pointers(xyz, out), I(b), I(n), I(npoint))
+    FPS_KERNEL.launch("hfr_fps", *pointers(xyz, out), I(b), I(n), I(npoint), I(cluster),
+                      I(threads))
     return out
 
 

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F_
 
 from heterofusionrcnn_torch.ops.conv import arrange_b
-from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, pointers, use_kernel
+from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, pointers, sm_count, use_kernel
 from heterofusionrcnn_torch.ops.grouping import group_point
 
 XCONV_KERNEL = CudaKernel("xconv.cu", {"hfr_xconv": [P] * 24 + [I] * 11}, exact=False)
@@ -154,16 +154,6 @@ def split_chunks(nchunks: int, splits: int) -> List[Tuple[int, int]]:
     return [(z * nchunks // splits, (z + 1) * nchunks // splits) for z in range(splits)]
 
 
-_num_sms = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _num_sms:
-        _num_sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _num_sms[idx]
-
-
 def fused_xconv(
     pts: torch.Tensor,
     fts: Optional[torch.Tensor],
@@ -197,7 +187,7 @@ def fused_xconv(
         if t is not None and t.dtype != torch.float32:
             raise ValueError(f"xconv kernel takes float32, got {t.dtype}")
     nq = b * p
-    plan = plan_xconv(nq, k, cf, cp, d, _sm_count(pts.device))
+    plan = plan_xconv(nq, k, cf, cp, d, sm_count(pts.device))
     if plan.splits > 1:
         partial = torch.empty((plan.splits, nq, d), dtype=torch.float32, device=pts.device)
         _launch_xconv(pts, fts, qrs, idx, w, None, partial, plan.splits)

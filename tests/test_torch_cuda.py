@@ -16,6 +16,8 @@ off); the crop gather bit for bit (a copy).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,9 @@ from heterofusionrcnn_torch.ops.conv import (
 )
 from heterofusionrcnn_torch.ops.cropping import crop_gather, crop_gather_plain
 from heterofusionrcnn_torch.ops.grouping import knn_point, knn_point_plain
+from heterofusionrcnn_torch.ops import nms as nms_ops
+from heterofusionrcnn_torch.ops import sampling
+from heterofusionrcnn_torch.ops.dispatch import MAX_CLUSTER, sm_count
 from heterofusionrcnn_torch.ops.nms import oriented_nms, oriented_nms_plain
 from heterofusionrcnn_torch.ops.sampling import (
     farthest_point_sample,
@@ -140,6 +145,142 @@ def test_nms_kernel_matches_plain(cuda, n, keep, thresh, masked):
     got, _ = oriented_nms(boxes, scores, thresh, keep, valid)
     torch.testing.assert_close(got, oriented_nms_plain(boxes, scores, thresh, keep, valid),
                                rtol=0, atol=0)
+
+
+# Every cluster size the FPS and NMS kernels take.
+CLUSTERS = [1, 2, 4, 8, MAX_CLUSTER]
+
+FPS_CASES = {
+    "rpn_4x16384": (4, 16384, 4096, "uniform"),  # the main path's first call
+    "cli_1x16384": (1, 16384, 4096, "uniform"),  # the KITTI CLI's batch 1
+    "n16383": (2, 16383, 1024, "uniform"),       # not a multiple of C x threads
+    "n5000": (2, 5000, 700, "uniform"),
+    "n100": (3, 100, 100, "uniform"),            # fewer points than C x 32
+    "npoint_above_n": (2, 20, 40, "uniform"),    # picks repeat once all are taken
+    "rcnn_400x512": (400, 512, 128, "uniform"),
+    "grid": (2, 3000, 500, "grid"),              # integer coordinates: exact ties
+    "duplicates": (2, 2048, 600, "duplicates"),  # every point 7 times: zero distances
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _fps_case(name):
+    """Points of an FPS case on the card and the plain version's picks."""
+    b, n, npoint, kind = FPS_CASES[name]
+    rng = np.random.default_rng(12)
+    if kind == "duplicates":
+        pts = np.repeat(_points(rng, b, -(-n // 7), False), 7, axis=1)[:, :n]
+        pts = np.ascontiguousarray(pts[:, rng.permutation(n)])
+    else:
+        pts = _points(rng, b, n, kind == "grid")
+    xyz = torch.from_numpy(pts).cuda()
+    return xyz, npoint, farthest_point_sample_plain(xyz, npoint)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("case", list(FPS_CASES))
+def test_fps_kernel_clusters_match_plain(cuda, case, cluster):
+    """The FPS kernel with each set on a cluster of each size: picks bit for
+    bit equal to the plain version's."""
+    xyz, npoint, want = _fps_case(case)
+    got = sampling._fps_kernel(xyz, npoint, cluster)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster,threads", [
+    (1, 160), (1, 320), (1, 1024), (4, 64), (4, 320), (4, 1024), (16, 32), (16, 96), (16, 320),
+])
+def test_fps_kernel_block_sizes_match_plain(cuda, cluster, threads):
+    """Every points-a-thread template (1 to 32; z in shared memory from 8)
+    through the block size the wrapper otherwise picks itself."""
+    xyz, npoint, want = _fps_case("n5000")
+    got = sampling._fps_kernel(xyz, npoint, cluster, threads)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+NMS_CASES = {
+    # name: (frames, boxes, max_keep, thresh, scores, boxes kind, mask)
+    "rpn_4x9000": (4, 9000, 100, 0.8, "uniform", "random", None),  # the RPN's call
+    "final_4x100": (4, 100, 100, 0.01, "uniform", "random", "random"),  # the final NMS
+    "equal_scores": (2, 700, 50, 0.5, "equal", "random", None),
+    "identical_boxes": (2, 300, 20, 0.5, "uniform", "identical", None),  # one kept, -1 after
+    "few_survive": (3, 40, 100, 0.1, "uniform", "random", None),  # -1 padding
+    "one_box": (3, 1, 5, 0.5, "uniform", "random", None),
+    "frame_without_valid": (3, 500, 30, 0.3, "uniform", "random", "frame 1 empty"),
+    "thresh_0": (2, 500, 60, 0.0, "uniform", "random", None),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _nms_case(name):
+    """Boxes, scores and mask of an NMS case on the card and the plain
+    version's keep list."""
+    b, n, keep, thresh, score_kind, box_kind, mask = NMS_CASES[name]
+    rng = np.random.default_rng(13)
+    boxes = _bev_boxes(rng, b, n)
+    if box_kind == "identical":
+        boxes[:] = boxes[:, :1]
+    scores = rng.uniform(0, 1, (b, n)).astype(np.float32)
+    if score_kind == "equal":
+        scores[:] = 0.5
+    valid = None
+    if mask is not None:
+        valid = rng.uniform(size=(b, n)) > 0.3
+        if mask == "frame 1 empty":
+            valid[1] = False
+        valid = torch.from_numpy(valid).cuda()
+    args = (torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda(), thresh, keep, valid)
+    return args, oriented_nms_plain(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("case", list(NMS_CASES))
+def test_nms_kernel_clusters_match_plain(cuda, case, cluster):
+    """The NMS kernel with each frame on a cluster of each size: keep lists
+    bit for bit equal to the plain version's, -1 padding included."""
+    args, want = _nms_case(case)
+    got = nms_ops._nms_kernel(*args, cluster)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster,threads", [(1, 1024), (2, 512), (4, 256), (8, 1024), (16, 64)])
+def test_nms_kernel_block_sizes_match_plain(cuda, cluster, threads):
+    """Several boxes a thread (up to 16), through the block size the
+    wrapper otherwise picks itself, on the RPN's shape."""
+    args, want = _nms_case("rpn_4x9000")
+    got = nms_ops._nms_kernel(*args, cluster, threads)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_rpn_calls_run_on_clusters(cuda):
+    """The RPN's FPS (4 x 16384) and NMS (4 x 9000) spread each set over a
+    cluster of more than one CTA, one the card can schedule; the RCNN's 400
+    sets and the final NMS's 100 boxes keep one CTA each."""
+    sms = sm_count(cuda)
+    fps_fits = lambda n: lambda c, t: sampling.fps_clusters(n, c, t) > 0  # noqa: E731
+    nms_fits = lambda n: lambda c, t: nms_ops.nms_clusters(n, c, t) > 0  # noqa: E731
+    assert sampling.fps_plan(4, 16384, sms, fps_fits(16384))[0] > 1
+    assert nms_ops.nms_plan(4, 9000, sms, nms_fits(9000))[0] > 1
+    assert sampling.fps_plan(400, 512, sms, fps_fits(512))[0] == 1
+    assert nms_ops.nms_plan(4, 100, sms, nms_fits(100))[0] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [3, 32])
+def test_cluster_kernels_refuse_other_sizes(cuda, cluster):
+    """A cluster size the kernels do not take raises; nothing retries with
+    another size or falls back to the plain version."""
+    xyz, npoint, _ = _fps_case("n5000")
+    with pytest.raises(RuntimeError):
+        sampling._fps_kernel(xyz, npoint, cluster)
+    args, _ = _nms_case("equal_scores")
+    with pytest.raises(RuntimeError):
+        nms_ops._nms_kernel(*args, cluster)
 
 
 @pytest.mark.cuda

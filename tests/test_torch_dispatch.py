@@ -5,7 +5,7 @@ names are computed, nothing is compiled."""
 
 from __future__ import annotations
 
-from heterofusionrcnn_torch.ops import conv, dispatch, grouping, xconv
+from heterofusionrcnn_torch.ops import conv, dispatch, grouping, nms, sampling, xconv
 from heterofusionrcnn_torch.ops.dispatch import CudaKernel
 
 
@@ -35,6 +35,14 @@ def test_conv_kernels_include_their_common_header():
     for kern in (conv.CONV_KERNEL, conv.CONVT_KERNEL, xconv.XCONV_KERNEL):
         assert [p.name for p in kern.headers()] == ["conv_common.cuh"]
     assert grouping.KNN_KERNEL.headers() == []
+
+
+def test_fps_and_nms_include_the_cluster_argmax_header():
+    """FPS and NMS share the cluster argmax: an edit of its header renames
+    (rebuilds) both libraries."""
+    for kern in (sampling.FPS_KERNEL, nms.NMS_KERNEL):
+        assert [p.name for p in kern.headers()] == ["cluster_argmax.cuh"]
+    assert sampling.FPS_KERNEL.lib_path != nms.NMS_KERNEL.lib_path
 
 
 def test_kernels_of_one_source_share_a_library_and_count_apart(tmp_path, monkeypatch):

@@ -48,6 +48,22 @@ def test_fps_matches_pallas(grid):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("b,n,npoint,grid", [
+    (3, 203, 37, False),   # N not a multiple of 8
+    (2, 333, 100, True),   # N not a multiple of 128, ties
+    (5, 17, 17, False),    # every point taken
+])
+def test_fps_matches_pallas_at_ragged_sizes(b, n, npoint, grid):
+    """Sizes the cluster kernel splits unevenly over its CTAs and threads;
+    on the CPU the wrapper runs the plain version that the card tests hold
+    the kernel to at every cluster size."""
+    rng = np.random.default_rng(n)
+    xyz = _points(rng, b, n, grid)
+    want = np.asarray(farthest_point_sample_pallas(jnp.asarray(xyz), npoint))
+    got = farthest_point_sample(torch.from_numpy(xyz), npoint)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 # ------------------------------------------------------------------ KNN --
 
 
@@ -93,6 +109,28 @@ def test_nms_matches_pallas(thresh, masked, tied):
             jnp.asarray(boxes[f]), jnp.asarray(scores[f]), thresh, keep,
             None if valid is None else jnp.asarray(valid[f]),
         )
+        np.testing.assert_array_equal(got_idx[f].numpy(), np.asarray(want_idx))
+        np.testing.assert_array_equal(got_valid[f].numpy(), np.asarray(want_valid))
+
+
+@pytest.mark.parametrize("n,keep,thresh", [(77, 30, 0.3), (131, 131, 0.0), (1, 4, 0.5)])
+def test_nms_matches_pallas_with_masked_frames(n, keep, thresh):
+    """N not a multiple of 8 or 128, a mask per frame with one frame where
+    no box is valid (all -1) and one where every box is, and keep lists
+    longer than what survives (-1 padding)."""
+    rng = np.random.default_rng(n + 7)
+    b = 3
+    boxes = _bev_boxes(rng, b, n)
+    scores = (np.round(rng.uniform(0, 1, (b, n)) * 8) / 8).astype(np.float32)
+    valid = rng.uniform(size=(b, n)) > 0.4
+    valid[1] = False
+    valid[2] = True
+    got_idx, got_valid = oriented_nms(torch.from_numpy(boxes), torch.from_numpy(scores), thresh,
+                                      keep, torch.from_numpy(valid))
+    assert (got_idx[1] == -1).all()
+    for f in range(b):
+        want_idx, want_valid = oriented_nms_pallas(
+            jnp.asarray(boxes[f]), jnp.asarray(scores[f]), thresh, keep, jnp.asarray(valid[f]))
         np.testing.assert_array_equal(got_idx[f].numpy(), np.asarray(want_idx))
         np.testing.assert_array_equal(got_valid[f].numpy(), np.asarray(want_valid))
 
