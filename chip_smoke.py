@@ -13,9 +13,9 @@
    two-stage inference (16384 points, 360x1200 images) at batch 4 with
    random weights and BatchNorm statistics from seed 0, kernel switches
    off (the JAX package's default path). Every launch count is set to 0
-   just before one forward and read just after; each of its five kernels
-   (KNN, FPS, NMS, fused XConv, the XConv's split epilogue) must have
-   launched. The forward is then
+   just before one forward and read just after; each of its six kernels
+   (KNN, the KNN's sorted-arm prep, FPS, NMS, fused XConv, the XConv's
+   split epilogue) must have launched. The forward is then
    timed over 5 batches with CUDA events and profiled once (device time by
    kernel name, device busy share).
 4. Drives the same detector (same weights, same inputs) with both switches
@@ -28,12 +28,20 @@
    of the counted ones) and holds the result against the kernel's plain
    PyTorch version: indices bit-exact for KNN, FPS and NMS, the crop gather
    bit-exact, |kernel - plain| <= 1e-4 + 1e-4 |plain| for the fused XConv
-   and the two convs. Times the kernel, the plain version and, where one
-   PyTorch call computes the same function, that call (`library_ms`, a
-   yardstick the port never calls: cdist + topk, cuDNN conv2d /
-   conv_transpose2d with TF32 off, index_select); computes each kernel's
-   bound from its inputs (for the two convs and the XConv, which run on
-   the tensor cores in 3xTF32, 3 x operations at the TF32 rate), prints each
+   and the two convs. Every KNN call runs under both arms (brute and
+   sorted), each bit-exact in indices and distances, and its sorted-arm
+   prep (keys, sort, float4 candidates, tile boxes: one kernel) bit-exact
+   against `knn_prep_plain`; each call's line gives its arm, ms, both arms'
+   ms, the share of (query, candidate) pairs the sorted arm evaluates, the
+   prep's ms and, beside it, a stable torch.sort of the same keys alone (a
+   yardstick for the sort inside the prep kernel). Times the kernel, the
+   plain version and, where one PyTorch call computes the same function,
+   that call (`library_ms`, a yardstick the port never calls: cdist + topk,
+   cuDNN conv2d / conv_transpose2d with TF32 off, index_select); computes
+   each kernel's bound from its inputs (for the two convs and the XConv,
+   which run on the tensor cores in 3xTF32, 3 x operations at the TF32
+   rate; for KNN over all P x N pairs, with the bound over the pairs its
+   arm evaluates on this data beside it, `visited_bound_ms`), prints each
    conv call's time and achieved TFLOP/s beside cuDNN's (and the kernel's
    alone on the weight operand the wrapper arranges per call), each XConv
    call's time, TFLOP/s, tile and split beside one FP32 `torch.matmul` of
@@ -55,7 +63,7 @@
    split val, full width, and checks one prediction file of finite rows per
    frame, 26 convs, 6 transposed convs and 1 crop launched on every frame
    (the RCNN runs its own VGG pass, the CLI's default), each of those
-   calls and every fused XConv, split-epilogue, FPS and NMS call held
+   calls and every fused XConv, split-epilogue, KNN, FPS and NMS call held
    against its plain version as in step 5, and the evaluator's AP lines.
 
 Prints a {"kernels": [...]} JSON line, then the result as its last line,
@@ -96,6 +104,8 @@ NMS_OPS_PER_IOU = 2 * 16 * 30 + 16 * 10 + 10
 
 TPU_KERNELS = {
     "knn": "heterofusionrcnn_tpu/ops/pallas_knn.py:356 (_knn_pallas_sorted), :472 (knn_pallas brute arm)",
+    "knn_prep": "heterofusionrcnn_tpu/ops/pallas_knn.py:356 (_knn_pallas_sorted's Morton keys, sort, "
+                "tiles and tile boxes, :362-383)",
     "fps": "heterofusionrcnn_tpu/ops/pallas_fps.py:116 (farthest_point_sample_pallas)",
     "nms": "heterofusionrcnn_tpu/ops/pallas_nms.py:138 (oriented_nms_pallas)",
     "xconv": "heterofusionrcnn_tpu/ops/pallas_xconv.py:263 (fused_xconv)",
@@ -111,7 +121,7 @@ KERNEL_OPS = {"knn": "knn_point", "fps": "farthest_point_sample",
               "nms": "oriented_nms", "xconv": "fused_xconv",
               "xconv_epilogue": "xconv_split_epilogue", "crop": "crop_gather",
               "conv": "conv3x3_affine_relu", "convt": "convtranspose3x3_affine_relu"}
-SLICE1 = ("knn", "fps", "nms", "xconv", "xconv_epilogue")
+SLICE1 = ("knn", "knn_prep", "fps", "nms", "xconv", "xconv_epilogue")
 # Launches of the switch-controlled kernels per batch-4 forward with the
 # switches on (one shared VGG pass) and per KITTI frame (two VGG passes).
 SWITCHED_PER_FORWARD = {"conv": 13, "convt": 3, "crop": 1}
@@ -194,6 +204,17 @@ def recording(ops=tuple(KERNEL_OPS.values())):
             setattr(where[op], op, rec.fn)
 
 
+def expected_launches(calls, names):
+    """Launches the recorded calls make: one per call of each kernel's op,
+    and one prep launch per KNN call on the sorted arm."""
+    from heterofusionrcnn_torch.ops.grouping import knn_arm
+
+    out = {name: len(calls[KERNEL_OPS[name]]) for name in names if name != "knn_prep"}
+    out["knn_prep"] = sum(knn_arm(xyz.shape[1], qrs.shape[1]) == "sorted"
+                              for (_, xyz, qrs), _ in calls["knn_point"])
+    return out
+
+
 def record_kernel_inputs(det, inputs):
     """One uncounted forward with the kernel ops wrapped, so the checks run
     on the inputs the main path gives each kernel."""
@@ -227,13 +248,26 @@ def check_switched(name, args, kwargs):
     return float(err.max())
 
 
-def check_index_exact(name, args, kwargs):
-    """One FPS or NMS call against its plain version, bit for bit."""
+def knn_bits(result):
+    """A KNN result's distances and indices as one int32 tensor, to compare
+    bit for bit."""
     import torch
 
-    from heterofusionrcnn_torch.ops import nms, sampling
+    return torch.cat([t.view(torch.int32) for t in result])
 
-    if name == "fps":
+
+def check_index_exact(name, args, kwargs):
+    """One KNN, FPS or NMS call against its plain version, bit for bit (KNN:
+    indices and distances)."""
+    import torch
+
+    from heterofusionrcnn_torch.ops import grouping, nms, sampling
+
+    if name == "knn":
+        k, xyz, qrs = args
+        got = knn_bits(grouping.knn_point(k, xyz, qrs))
+        want = knn_bits(grouping.knn_point_plain(k, xyz, qrs))
+    elif name == "fps":
         xyz, npoint = args
         got = sampling.farthest_point_sample(xyz, npoint)
         want = sampling.farthest_point_sample_plain(xyz, npoint)
@@ -343,24 +377,78 @@ def check_kernels(calls, calls_on, reps):
         r["_ops_ms"] = r.get("_ops_ms", 0.0) + t_ops
         r["bound_ms"] += max(t_bytes, t_ops)
 
-    # KNN: 8 FP32 operations per (query, candidate) pair.
+    # KNN: 8 FP32 operations per (query, candidate) pair, all P x N pairs (the
+    # brute scan's work; the pairs the sorted arm evaluates are counted
+    # beside it, `visited_pairs`), and the bytes of points, queries and
+    # results (`bytes_bound_ms`). `visited_bound_ms`: the same bound on the
+    # pairs the main path's arm evaluates on this data (the sorted arm's
+    # visited pairs, every pair on the brute arm), the row's real floor.
+    # `ms` is the wrapper on the arm `knn_arm` picks (the main path's, the
+    # sorted arm's prep included); both arms are held bit for bit and timed
+    # on every call.
     r = row("knn", "heterofusionrcnn_torch/ops/csrc/knn.cu")
-    r["library_ms"] = 0.0
+    r.update(library_ms=0.0, bytes_bound_ms=0.0, visited_bound_ms=0.0, pairs=0, visited_pairs=0,
+             sorted_pairs=0)
+    # The sorted arm's prep kernel (keys, sort, float4 candidates, tile
+    # boxes): bytes only, the points read once, the keys, float4 candidates,
+    # tile boxes and the query order written once. Its ms is part of the
+    # KNN's. `torch_sort_ms`: a stable torch.sort of the same keys alone.
+    rp = row("knn_prep", "heterofusionrcnn_torch/ops/csrc/knn.cu")
     for (k, xyz, qrs), _ in calls["knn_point"]:
-        d, i = grouping.knn_point(k, xyz, qrs)
-        pd, pi = grouping.knn_point_plain(k, xyz, qrs)
-        if not torch.equal(i, pi):
-            raise AssertionError(f"knn indices differ at k={k} {tuple(xyz.shape)} {tuple(qrs.shape)}")
-        r["max_abs_err"] = max(r["max_abs_err"], float((d - pd).abs().max()))
+        same = qrs is xyz
+        b, n, p = xyz.shape[0], xyz.shape[1], qrs.shape[1]
+        shape = f"{b}x{p}q x {n}{' same set' if same else ''} k{k}"
+        want = knn_bits(grouping.knn_point_plain(k, xyz, qrs))
+        for arm in ("brute", "sorted"):
+            if not torch.equal(knn_bits(grouping.knn_point(k, xyz, qrs, arm=arm)), want):
+                raise AssertionError(f"knn {arm} arm differs from the plain version at {shape}")
+        prep = grouping.knn_prep(xyz, qrs)
+        plain = grouping.knn_prep_plain(xyz, qrs)
+        # The candidates bit for bit (index bits in the fourth word), the rest by value.
+        if not (torch.equal(prep.cand.view(torch.int32), plain.cand.view(torch.int32))
+                and all(w is None or torch.equal(g, w) for g, w in zip(prep[1:], plain[1:]))):
+            raise AssertionError(f"knn prep differs from its plain version at {shape}")
+        arm = grouping.knn_arm(n, p)
         ms = cuda_ms(lambda: grouping.knn_point(k, xyz, qrs), reps)
+        arm_ms = {a: cuda_ms(lambda: grouping.knn_point(k, xyz, qrs, arm=a), reps)
+                  for a in ("brute", "sorted")}
         pms = cuda_ms(lambda: grouping.knn_point_plain(k, xyz, qrs), 1)
         lms = cuda_ms(lambda: torch.topk(torch.cdist(qrs, xyz), k, dim=-1, largest=False), reps)
-        b, n, p = xyz.shape[0], xyz.shape[1], qrs.shape[1]
-        add_bound(r, (b * n * 3 + b * p * 3) * 4 + b * p * k * 8, 8.0 * b * p * n)
+        visited = torch.zeros(1, dtype=torch.int64, device=xyz.device)
+        grouping.knn_sorted(k, xyz, qrs, visited=visited)
+        v = int(visited)
+        keys = [grouping.knn_sort_keys(xyz, xyz)] + ([] if same else [grouping.knn_sort_keys(qrs, xyz)])
+        sort_ms = cuda_ms(lambda: [torch.sort(t, dim=1, stable=True) for t in keys], reps)
+        prep_ms = cuda_ms(lambda: grouping.knn_prep(xyz, qrs), reps)
+        prep_pms = cuda_ms(lambda: grouping.knn_prep_plain(xyz, qrs), reps)
+        nbytes = (b * n * 3 + b * p * 3) * 4 + b * p * k * 8
+        add_bound(r, nbytes, 8.0 * b * p * n)
+        r["bytes_bound_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+        evaluated = v if arm == "sorted" else b * p * n
+        r["visited_bound_ms"] += max(nbytes / HBM_BYTES_PER_S,
+                                     8.0 * evaluated / FP32_FLOPS_PER_S) * 1e3
         r["ms"] += ms
         r["plain_ms"] += pms
         r["library_ms"] += lms
-        r["calls"].append(dict(shape=f"{b}x{p}q x {n} k{k}", ms=ms, plain_ms=pms, library_ms=lms))
+        r["pairs"] += b * p * n
+        if arm == "sorted":
+            r["visited_pairs"] += v
+            r["sorted_pairs"] += b * p * n
+            ntiles = -(-n // grouping.KNN_TILE)
+            pbytes = b * n * (12 + 16 + 4) + b * ntiles * 32 + (0 if same else b * p * (12 + 8))
+            add_bound(rp, pbytes, 0.0)
+            rp["ms"] += prep_ms
+            rp["plain_ms"] += prep_pms
+        share = v / (b * p * n)
+        r["calls"].append(dict(shape=shape, arm=arm, ms=ms, brute_ms=arm_ms["brute"],
+                               sorted_ms=arm_ms["sorted"], prep_ms=prep_ms, torch_sort_ms=sort_ms,
+                               visited_pairs=v, pairs=b * p * n, visited_share=share,
+                               plain_ms=pms, library_ms=lms))
+        print(f"knn {shape}: {arm} arm {ms:.4f} ms (brute {arm_ms['brute']:.4f}, sorted "
+              f"{arm_ms['sorted']:.4f}); sorted arm evaluates {share:.4f} of the pairs; prep "
+              f"{prep_ms:.4f} ms (a stable torch.sort of its keys alone {sort_ms:.4f})",
+              flush=True)
+    r["visited_share"] = r["visited_pairs"] / max(r["sorted_pairs"], 1)
 
     # FPS: 9 FP32 operations (distance + min) per point per iteration. Its
     # real floor is latency, npoint dependent argmaxes over the set: one
@@ -558,7 +646,8 @@ def check_kernels(calls, calls_on, reps):
                                library_ms=lms))
 
     for r in rows.values():
-        r["bound_by"] = "bytes" if r.pop("_bytes_ms") > r.pop("_ops_ms") else "operations"
+        r["bound_by"] = ("bytes" if r.pop("_bytes_ms", 0.0) > r.pop("_ops_ms", 0.0)
+                         else "operations")
     return rows
 
 
@@ -681,12 +770,12 @@ def kitti_phase(kernels, out_root):
         shutil.rmtree(ckpt)
 
 
-def _kitti_run(kernels, out_root, ckpt):
-    import numpy as np
-    import torch
-
+def kitti_cli(out_root, ckpt, flags):
+    """Saves the full-width detector's seed-0 random weights (random
+    BatchNorm statistics) as port checkpoints under `ckpt`, then runs the
+    KITTI inference CLI in process on the fixture val frames with the extra
+    `flags`, predictions under `out_root`; returns its result."""
     from heterofusionrcnn_torch.experiments import common, run_inference
-    from heterofusionrcnn_torch.inference import TwoStageDetector
     from heterofusionrcnn_torch.models.extractors.layers import init_weights
     from heterofusionrcnn_torch.runtime.checkpoint import CheckpointManager
 
@@ -696,6 +785,20 @@ def _kitti_run(kernels, out_root, ckpt):
     randomize_batchnorm(init_weights(det, SEED), SEED)
     CheckpointManager(os.path.join(ckpt, "rpn")).save(0, det.rpn)
     CheckpointManager(os.path.join(ckpt, "rcnn")).save(0, det.rcnn)
+    del det
+    return run_inference.main([
+        "--rpn_config", "rpn_multiclass", "--rcnn_config", "rcnn_multiclass",
+        "--rpn_checkpoint", os.path.join(ckpt, "rpn"),
+        "--rcnn_checkpoint", os.path.join(ckpt, "rcnn"),
+        "--dataset_dir", KITTI_DIR, "--data_split", "val",
+        "--output_root", os.path.join(out_root, "predictions"), *flags,
+    ])
+
+
+def _kitti_run(kernels, out_root, ckpt):
+    import numpy as np
+
+    from heterofusionrcnn_torch.inference import TwoStageDetector
 
     per_frame = []
     forward = TwoStageDetector.forward
@@ -707,17 +810,10 @@ def _kitti_run(kernels, out_root, ckpt):
 
     TwoStageDetector.forward = counted
     switched = {k: KERNEL_OPS[k] for k in SWITCHED_PER_FRAME}
-    other_ops = tuple(KERNEL_OPS[k] for k in ("xconv", "xconv_epilogue", "fps", "nms"))
+    other_ops = tuple(KERNEL_OPS[k] for k in ("xconv", "xconv_epilogue", "knn", "fps", "nms"))
     try:
         with recording(tuple(switched.values()) + other_ops) as calls:
-            result = run_inference.main([
-                "--rpn_config", "rpn_multiclass", "--rcnn_config", "rcnn_multiclass",
-                "--rpn_checkpoint", os.path.join(ckpt, "rpn"),
-                "--rcnn_checkpoint", os.path.join(ckpt, "rcnn"),
-                "--dataset_dir", KITTI_DIR, "--data_split", "val",
-                "--output_root", os.path.join(out_root, "predictions"),
-                "--conv_kernels", "--crop_kernel", "--kitti_eval",
-            ])
+            result = kitti_cli(out_root, ckpt, ["--conv_kernels", "--crop_kernel", "--kitti_eval"])
     finally:
         TwoStageDetector.forward = forward
     frames = result["frames"]
@@ -746,9 +842,11 @@ def _kitti_run(kernels, out_root, ckpt):
         if len(calls[op]) != sum(launches[name] for launches in per_frame):
             raise AssertionError(f"{name}: {len(calls[op])} recorded calls, launches {per_frame}")
         result["max_abs_err"][name] = max(check(*a) for a, _ in calls[op])
-    # Every FPS and NMS call of every frame, bit for bit.
+    # Every KNN, FPS and NMS call of every frame, bit for bit.
     result["index_exact_calls"] = {}
-    for name in ("fps", "nms"):
+    if expected_launches(calls, ("knn",))["knn_prep"] != sum(f["knn_prep"] for f in per_frame):
+        raise AssertionError(f"knn prep launches {per_frame} do not match the sorted-arm calls")
+    for name in ("knn", "fps", "nms"):
         op = KERNEL_OPS[name]
         if len(calls[op]) != sum(launches[name] for launches in per_frame):
             raise AssertionError(f"{name}: {len(calls[op])} recorded calls, launches {per_frame}")
@@ -783,7 +881,8 @@ def main(argv=None) -> int:
     report = {"card": card_line(), "torch": torch.__version__, "cuda": torch.version.cuda}
     print(report["card"], flush=True)
 
-    kernels = {"knn": grouping.KNN_KERNEL, "fps": sampling.FPS_KERNEL,
+    kernels = {"knn": grouping.KNN_KERNEL, "knn_prep": grouping.KNN_PREP_KERNEL,
+               "fps": sampling.FPS_KERNEL,
                "nms": nms.NMS_KERNEL, "xconv": xconv.XCONV_KERNEL,
                "xconv_epilogue": xconv.XCONV_EPILOGUE_KERNEL, "crop": cropping.CROP_KERNEL, "conv": conv.CONV_KERNEL,
                "convt": conv.CONVT_KERNEL}
@@ -797,6 +896,9 @@ def main(argv=None) -> int:
     for name, fns in report["ptxas_conv"].items():
         for f in fns:
             print(f"ptxas {name}: " + " ".join(f"{k}={v}" for k, v in f.items()), flush=True)
+    report["ptxas_knn"] = ptxas_summary(kernels["knn"].build_log)
+    for f in report["ptxas_knn"]:
+        print("ptxas knn: " + " ".join(f"{k}={v}" for k, v in f.items()), flush=True)
     report["sass_conv"] = {k: sass_mma_counts(kernels[k].lib_path) for k in tensor_core}
     print(f"tensor-core instructions in SASS: {report['sass_conv']}", flush=True)
     if not all(c["HGMMA"] for c in report["sass_conv"].values()):
@@ -817,7 +919,7 @@ def main(argv=None) -> int:
     missing = [name for name in SLICE1 if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    recorded = {name: len(calls[KERNEL_OPS[name]]) for name in kernels}
+    recorded = expected_launches(calls, kernels)
     if recorded != launches:
         raise AssertionError(f"recorded kernel calls {recorded} != main-path launches {launches}")
     report["num_final"] = check_outputs(out, b)
@@ -844,7 +946,7 @@ def main(argv=None) -> int:
     want_on = dict(SWITCHED_PER_FORWARD, **{k: launches[k] for k in SLICE1})
     if launches_on != want_on:
         raise AssertionError(f"switches-on launches {launches_on} != {want_on}")
-    recorded_on = {name: len(calls_on[KERNEL_OPS[name]]) for name in kernels}
+    recorded_on = expected_launches(calls_on, kernels)
     if recorded_on != launches_on:
         raise AssertionError(f"recorded calls {recorded_on} != switches-on launches {launches_on}")
     report["num_final_switches_on"] = check_outputs(out_on, b)
@@ -875,7 +977,9 @@ def main(argv=None) -> int:
         json.dump(report, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))
+    extra = ("bytes_bound_ms", "visited_bound_ms", "visited_share")  # the KNN row's
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
+                                  for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

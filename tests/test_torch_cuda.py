@@ -29,6 +29,7 @@ from heterofusionrcnn_torch.ops.conv import (
     convtranspose3x3_affine_relu_plain,
 )
 from heterofusionrcnn_torch.ops.cropping import crop_gather, crop_gather_plain
+from heterofusionrcnn_torch.ops import grouping
 from heterofusionrcnn_torch.ops.grouping import knn_point, knn_point_plain
 from heterofusionrcnn_torch.ops import nms as nms_ops
 from heterofusionrcnn_torch.ops import sampling
@@ -133,6 +134,132 @@ def test_knn_kernel_matches_plain(cuda, grid, k):
     want_d, want_i = knn_point_plain(k, xyz, qrs)
     torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
     torch.testing.assert_close(got_d, want_d, rtol=0, atol=0)
+
+
+# The batch-4 forward's 13 KNN calls: (sets, candidates, queries (None: the
+# same set), k). RPN: the PointCNN's XConv / XDConv layers; RCNN: 400 crops.
+KNN_MAIN_PATH = [
+    (4, 16384, None, 8), (4, 4096, 1024, 8), (4, 1024, 256, 8), (4, 256, 64, 8),
+    (4, 64, None, 8), (4, 64, 256, 8), (4, 256, 1024, 8), (4, 1024, 4096, 8),
+    (4, 4096, 16384, 8),
+    (400, 512, None, 4), (400, 512, 128, 8), (400, 128, 32, 12), (400, 32, 8, 12),
+]
+
+
+def _main_path_knn_inputs(b, n, p, device):
+    """Points like the main path's: the RPN's over random_batch's volume,
+    the RCNN's inside a car-sized crop whose first 400 points repeat (the
+    crop's wrap). A query set is the candidates' first P points (an FPS
+    subset) or the candidates are the queries' first N (XDConv)."""
+    rng = np.random.default_rng(n * 7 + (p or 0))
+    m = max(n, p or 0)
+    if b == 400:
+        pts = rng.uniform([-2, -1, -1], [2, 1, 1], (b, m, 3))
+        if m > 400:
+            pts[:, 400:] = pts[:, :m - 400]
+    else:
+        pts = rng.uniform(-40, 40, (b, m, 3))
+        pts[..., 2] = np.abs(pts[..., 2]) + 1.0
+    pts = torch.from_numpy(pts.astype(np.float32)).to(device)
+    xyz = pts[:, :n].contiguous()
+    return xyz, xyz if p is None else pts[:, :p].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["brute", "sorted"])
+@pytest.mark.parametrize("b,n,p,k", KNN_MAIN_PATH)
+def test_knn_arms_match_plain_at_main_path_shapes(cuda, b, n, p, k, arm):
+    xyz, qrs = _main_path_knn_inputs(b, n, p, cuda)
+    got_d, got_i = knn_point(k, xyz, qrs, arm=arm)
+    want_d, want_i = knn_point_plain(k, xyz, qrs)
+    torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
+    torch.testing.assert_close(got_d, want_d, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["brute", "sorted"])
+@pytest.mark.parametrize("kind,b,n,p,k", [
+    ("grid", 2, 700, None, 12),      # ties; N not a multiple of T
+    ("grid", 1, 517, 77, 16),        # P not a multiple of 32
+    ("dup", 2, 512, None, 4),
+    ("dup", 1, 600, 45, 12),
+    ("same", 1, 300, None, 16),      # identical points, extents 0
+    ("same", 2, 20, 40, 1),          # N smaller than a tile
+    ("line", 1, 400, None, 8),       # collinear
+    ("line", 2, 257, 31, 12),
+    ("grid", 1, 16, None, 16),       # k = N
+    ("uniform", 2, 12, 5, 12),       # k = N, N not a multiple of T
+    ("flat", 2, 5000, 1111, 8),
+    ("huge", 2, 300, None, 8),       # inf distances, ties by index
+    ("huge", 1, 700, 90, 12),
+])
+def test_knn_arms_match_plain_at_edge_cases(cuda, kind, b, n, p, k, arm):
+    """The CPU file's edge cases (tests/test_torch_knn.py) on the card."""
+    from tests.knn_mirror import cloud
+
+    xyz = torch.from_numpy(cloud(kind, 0, b, n)).to(cuda)
+    qrs = xyz if p is None else torch.from_numpy(cloud(kind, 1, b, p)).to(cuda)
+    got_d, got_i = knn_point(k, xyz, qrs, arm=arm)
+    want_d, want_i = knn_point_plain(k, xyz, qrs)
+    torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
+    torch.testing.assert_close(got_d, want_d, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p", [(300, 300), (100, 300)])
+def test_knn_sorted_takes_equal_but_distinct_queries_as_another_set(cuda, n, p):
+    """Only the same object is the same set: queries equal to the
+    candidates but another tensor (as many, or more) are sorted apart."""
+    from tests.knn_mirror import cloud
+
+    xyz = torch.from_numpy(cloud("dup", 8, 2, n)).to(cuda)
+    qrs = xyz.repeat(1, -(-p // n), 1)[:, :p].clone()
+    assert grouping.knn_prep(xyz, qrs).qperm is not None
+    got_d, got_i = grouping.knn_sorted(8, xyz, qrs)
+    want_d, want_i = knn_point_plain(8, xyz, qrs)
+    torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
+    torch.testing.assert_close(got_d, want_d, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flat", "uniform", "grid", "line"])
+def test_knn_sorted_visits_the_mirrors_pairs(cuda, kind):
+    """The search kernel follows tests/knn_mirror.py's schedule: the same
+    prepared points as the plain prep, bit for bit, and the same count of
+    evaluated pairs, for the same set and for another query set."""
+    from tests.knn_mirror import cloud, sorted_schedule
+
+    xyz = torch.from_numpy(cloud(kind, 2, 2, 3000))
+    for qrs in (xyz, torch.from_numpy(cloud(kind, 3, 2, 900))):
+        want_d, want_i, want_v = sorted_schedule(8, xyz, qrs)
+        cx = xyz.to(cuda)
+        cq = cx if qrs is xyz else qrs.to(cuda)
+        assert _prep_equal(grouping.knn_prep(cx, cq), grouping.knn_prep_plain(xyz, qrs))
+        visited = torch.zeros(1, dtype=torch.int64, device=cuda)
+        got_d, got_i = grouping.knn_sorted(8, cx, cq, visited=visited)
+        assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_d.cpu(), want_d)
+        assert int(visited) == want_v
+
+
+def _prep_equal(got, want):
+    """Two `KnnTiles` alike: the candidates bit for bit (their fourth word
+    holds index bits, not a number), the rest by value."""
+    if not torch.equal(got.cand.cpu().view(torch.int32), want.cand.view(torch.int32)):
+        return False
+    return all(w is None or torch.equal(g.cpu(), w) for g, w in zip(got[1:], want[1:]))
+
+
+@pytest.mark.cuda
+def test_knn_sorted_refuses_other_options(cuda):
+    big = torch.rand(1, grouping.KNN_SORTED_MAX_POINTS + 1, 3, device=cuda)
+    with pytest.raises(ValueError):
+        grouping.knn_sorted(4, big, big)
+    assert grouping.knn_arm(big.shape[1], big.shape[1]) == "brute"
+    xyz = torch.rand(1, 100, 3, device=cuda)
+    with pytest.raises(ValueError):
+        grouping.knn_sorted(4, xyz, xyz, visited=torch.zeros(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(RuntimeError):
+        grouping.knn_sorted(17, xyz, xyz)
 
 
 @pytest.mark.cuda
