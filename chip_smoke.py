@@ -66,6 +66,29 @@
    calls and every fused XConv, split-epilogue, KNN, FPS and NMS call held
    against its plain version as in step 5, and the evaluator's AP lines.
 
+8. Training (`training_phase`): full-width `rpn_multiclass` at batch 2 on
+   the fixture train frames (real labels, `flipping` + `pca_jitter`),
+   through `python -m heterofusionrcnn_torch.experiments.run_training` in
+   process from a JSON config with checkpoint_interval 3, into
+   --out/chip_smoke_train: 6 steps, then a second run that resumes at 6 and
+   reaches 8. Each step runs between zeroing and reading every launch
+   count and is timed between two device synchronisations; it must launch
+   KNN, its sorted-arm prep and FPS, and no fused XConv and no NMS (the
+   training XConv runs unfused). Prints each step's ms and four losses
+   (all finite) and the peak device memory. Every KNN and FPS call of one
+   recorded step is held bit-exact against its plain version, timed and
+   bounded as in step 5 (rows knn_train, knn_prep_train, fps_train of the
+   kernels line, launches per train step). The trained weights then run
+   two val-mode forwards around one more train step: each forward's NMS
+   calls bit-exact and fused XConv calls within the gate, every XConv's
+   kept weight fold equal to a fresh fold, the step refolding each XConv
+   once. One more step is profiled (device time by kernel name). Then one
+   train step at `rpn_unittest` width on the card against the same step on
+   the CPU (dropout and path drop off: losses within 1e-4, parameters
+   within 1e-3 / 1e-5 as the tests hold them), and 8 full-width steps on
+   one repeated batch, which must lower the total loss (the curve is
+   printed).
+
 Prints a {"kernels": [...]} JSON line, then the result as its last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 CUDA is unavailable, the package is missing or any check fails. Details go
@@ -350,32 +373,39 @@ def sweep(shape, want, rounds, fit, launch, reps):
     return out
 
 
-def check_kernels(calls, calls_on, reps):
-    """Kernel vs plain on every recorded call (`calls`: the switches-off
-    forward, `calls_on`: the switched kernels of the switches-on forward);
-    times and bounds summed over the calls of one forward."""
+def new_row(rows, name, source, kernel=None):
+    """A kernels-line row `name` for the TPU kernel `kernel` (default: the
+    row's name)."""
+    rows[name] = dict(name=name, route="cuda", source=source,
+                      replaces=TPU_KERNELS[kernel or name], launches=0, max_abs_err=0.0,
+                      ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by="operations",
+                      library_ms=None, calls=[])
+    return rows[name]
+
+
+def add_bound(r, nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
+    """Adds one call's bound: the larger of its bytes over the memory rate
+    and its operations over the unit's peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    r["_bytes_ms"] = r.get("_bytes_ms", 0.0) + t_bytes
+    r["_ops_ms"] = r.get("_ops_ms", 0.0) + t_ops
+    r["bound_ms"] += max(t_bytes, t_ops)
+
+
+def finish_rows(rows):
+    """Sets each row's `bound_by` from its summed byte and operation bounds."""
+    for r in rows.values():
+        r["bound_by"] = ("bytes" if r.pop("_bytes_ms", 0.0) > r.pop("_ops_ms", 0.0)
+                         else "operations")
+    return rows
+
+
+def knn_rows(rows, calls, reps, suffix=""):
+    """Rows knn<suffix> and knn_prep<suffix> over the recorded KNN calls."""
     import torch
-    import torch.nn.functional as F
 
-    from heterofusionrcnn_torch.ops import conv, cropping, grouping, nms, sampling, xconv
-    from heterofusionrcnn_torch.ops.dispatch import cluster_threads
-
-    rows = {}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def row(name, source):
-        rows[name] = dict(name=name, route="cuda", source=source,
-                          replaces=TPU_KERNELS[name], launches=0, max_abs_err=0.0,
-                          ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by="operations",
-                          library_ms=None, calls=[])
-        return rows[name]
-
-    def add_bound(r, nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / flops_per_s * 1e3
-        r["_bytes_ms"] = r.get("_bytes_ms", 0.0) + t_bytes
-        r["_ops_ms"] = r.get("_ops_ms", 0.0) + t_ops
-        r["bound_ms"] += max(t_bytes, t_ops)
+    from heterofusionrcnn_torch.ops import grouping
 
     # KNN: 8 FP32 operations per (query, candidate) pair, all P x N pairs (the
     # brute scan's work; the pairs the sorted arm evaluates are counted
@@ -386,14 +416,14 @@ def check_kernels(calls, calls_on, reps):
     # `ms` is the wrapper on the arm `knn_arm` picks (the main path's, the
     # sorted arm's prep included); both arms are held bit for bit and timed
     # on every call.
-    r = row("knn", "heterofusionrcnn_torch/ops/csrc/knn.cu")
+    r = new_row(rows, "knn" + suffix, "heterofusionrcnn_torch/ops/csrc/knn.cu", "knn")
     r.update(library_ms=0.0, bytes_bound_ms=0.0, visited_bound_ms=0.0, pairs=0, visited_pairs=0,
              sorted_pairs=0)
     # The sorted arm's prep kernel (keys, sort, float4 candidates, tile
     # boxes): bytes only, the points read once, the keys, float4 candidates,
     # tile boxes and the query order written once. Its ms is part of the
     # KNN's. `torch_sort_ms`: a stable torch.sort of the same keys alone.
-    rp = row("knn_prep", "heterofusionrcnn_torch/ops/csrc/knn.cu")
+    rp = new_row(rows, "knn_prep" + suffix, "heterofusionrcnn_torch/ops/csrc/knn.cu", "knn_prep")
     for (k, xyz, qrs), _ in calls["knn_point"]:
         same = qrs is xyz
         b, n, p = xyz.shape[0], xyz.shape[1], qrs.shape[1]
@@ -450,12 +480,22 @@ def check_kernels(calls, calls_on, reps):
               flush=True)
     r["visited_share"] = r["visited_pairs"] / max(r["sorted_pairs"], 1)
 
+
+def fps_row(rows, calls, reps, suffix="", sweeps=True):
+    """Row fps<suffix> over the recorded FPS calls; `sweeps` reruns each
+    call on clusters of every size."""
+    import torch
+
+    from heterofusionrcnn_torch.ops import sampling
+    from heterofusionrcnn_torch.ops.dispatch import cluster_threads
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # FPS: 9 FP32 operations (distance + min) per point per iteration. Its
     # real floor is latency, npoint dependent argmaxes over the set: one
     # iteration of the kernel is timed on 1024 points (B=1, npoint=1024, the
     # plan's one CTA) and npoint of them make each call's latency floor.
     # Every call runs again on clusters of every size (`sweep`).
-    r = row("fps", "heterofusionrcnn_torch/ops/csrc/fps.cu")
+    r = new_row(rows, "fps" + suffix, "heterofusionrcnn_torch/ops/csrc/fps.cu", "fps")
     probe = torch.rand((1, 1024, 3), generator=torch.Generator().manual_seed(SEED)).cuda()
     r["iteration_us"] = cuda_ms(lambda: sampling.farthest_point_sample(probe, 1024), reps) / 1024 * 1e3
     r["latency_ms"] = 0.0
@@ -479,11 +519,32 @@ def check_kernels(calls, calls_on, reps):
                                us_per_iteration=per_it))
         print(f"fps {shape}: {ms:.4f} ms on clusters of {c} x {threads} threads, "
               f"{per_it:.3f} us per iteration", flush=True)
-        r["sweep"] += sweep(
-            shape, want, npoint - 1,
-            lambda c: sampling.fps_clusters(n, c, cluster_threads(
-                n, c, sampling.FPS_POINTS_PER_THREAD)),
-            lambda c: sampling._fps_kernel(xyz, npoint, c), reps)
+        if sweeps:
+            r["sweep"] += sweep(
+                shape, want, npoint - 1,
+                lambda c: sampling.fps_clusters(n, c, cluster_threads(
+                    n, c, sampling.FPS_POINTS_PER_THREAD)),
+                lambda c: sampling._fps_kernel(xyz, npoint, c), reps)
+
+
+def check_kernels(calls, calls_on, reps):
+    """Kernel vs plain on every recorded call (`calls`: the switches-off
+    forward, `calls_on`: the switched kernels of the switches-on forward);
+    times and bounds summed over the calls of one forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from heterofusionrcnn_torch.ops import conv, cropping, nms, xconv
+    from heterofusionrcnn_torch.ops.dispatch import cluster_threads
+
+    rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def row(name, source):
+        return new_row(rows, name, source)
+
+    knn_rows(rows, calls, reps)
+    fps_row(rows, calls, reps)
 
     # NMS: NMS_OPS_PER_IOU per rotated IoU, counted for the IoUs this data
     # needs. Every call runs again on clusters of every size (`sweep`).
@@ -645,10 +706,7 @@ def check_kernels(calls, calls_on, reps):
         r["calls"].append(dict(shape=f"{b}x{n}x{c} -> {nb}x{rr}", ms=ms, plain_ms=pms,
                                library_ms=lms))
 
-    for r in rows.values():
-        r["bound_by"] = ("bytes" if r.pop("_bytes_ms", 0.0) > r.pop("_ops_ms", 0.0)
-                         else "operations")
-    return rows
+    return finish_rows(rows)
 
 
 def ptxas_summary(log: str):
@@ -781,7 +839,7 @@ def kitti_cli(out_root, ckpt, flags):
 
     rpn_cfg = common.resolve_config("rpn_multiclass", KITTI_DIR)
     rcnn_cfg = common.resolve_config("rcnn_multiclass", KITTI_DIR)
-    det = common.build_model(rpn_cfg, rcnn_cfg, common.build_dataset(rpn_cfg, "test", "val"))
+    det = common.build_detector(rpn_cfg, rcnn_cfg, common.build_dataset(rpn_cfg, "test", "val"))
     randomize_batchnorm(init_weights(det, SEED), SEED)
     CheckpointManager(os.path.join(ckpt, "rpn")).save(0, det.rpn)
     CheckpointManager(os.path.join(ckpt, "rcnn")).save(0, det.rcnn)
@@ -857,6 +915,339 @@ def _kitti_run(kernels, out_root, ckpt):
     result["launches_per_frame"] = per_frame
     print("KITTI frames ms: " + " ".join(f"{t:.2f}" for t in result["frame_ms"]), flush=True)
     return result
+
+
+# The training phase: `rpn_multiclass` at full width on the fixture frames,
+# batch 2, through the training CLI for TRAIN_STEPS steps (a checkpoint
+# every TRAIN_INTERVAL), then a second run that resumes and reaches
+# TRAIN_RESUMED_TO.
+TRAIN_STEPS, TRAIN_RESUMED_TO, TRAIN_INTERVAL = 6, 8, 3
+TRAIN_RECORDED_STEP = 1        # the step (0-based, first run) whose kernel calls are held
+TRAIN_KERNELS = ("knn", "knn_prep", "fps")  # launched by every train step
+CURVE_STEPS = 8                # steps on one repeated batch that must lower the loss
+# tests/test_torch_training.py's tolerances: losses rtol 1e-4 / atol 1e-5;
+# gradients, and parameters after a step, rtol 1e-3 / atol 1e-5. Adam moves
+# an element by about the learning rate times the sign of its gradient, so
+# where the card's and the CPU's gradients agree only within the absolute
+# part of that tolerance (rounding noise of two summation orders: the
+# biases that a training BatchNorm follows, whose gradient is 0 in exact
+# arithmetic, and elements of a tiny gradient) the updated element is held
+# within 2 x the learning rate more; every other element within 1e-3 / 1e-5.
+LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
+PARAM_TOL = dict(rtol=1e-3, atol=1e-5)
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+class StepMonitor:
+    """Stands in for `make_rpn_train_step` where the training CLI builds
+    its step: each step between zeroing every launch count and reading it,
+    timed on the host clock between two device synchronisations, its four
+    losses kept, and the KNN and FPS calls of one step recorded."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.steps = []
+        self.calls = None
+
+    def factory(self, loss_fn):
+        import torch
+
+        from heterofusionrcnn_torch.runtime.train_state import make_rpn_train_step
+
+        step = make_rpn_train_step(loss_fn)
+
+        def monitored(state, batch):
+            record = len(self.steps) == TRAIN_RECORDED_STEP
+            start = state.step
+            for kern in self.kernels.values():
+                kern.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (recording(("knn_point", "farthest_point_sample")) if record
+                  else contextlib.nullcontext()) as calls:
+                metrics = step(state, batch)
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if record:
+                self.calls = calls
+            losses = {k: float(v) for k, v in metrics.items()}
+            self.steps.append(dict(start=start, ms=ms, losses=losses,
+                                   launches={k: kern.launches for k, kern in self.kernels.items()}))
+            print(f"train step {start + 1}: {ms:.2f} ms, "
+                  + " ".join(f"{k}={v:.4f}" for k, v in losses.items()), flush=True)
+            return metrics
+
+        return monitored
+
+
+def train_batch(cfg, device, seed=SEED):
+    """One batch of 2 fixture train frames at the config's sizes, on `device`."""
+    from heterofusionrcnn_torch.experiments import common
+    from heterofusionrcnn_torch.runtime.trainer import batch_to_device
+
+    dataset = common.build_dataset(cfg, "train", "train")
+    dataset.seed(seed)
+    return batch_to_device(common.make_batch_fn(cfg, dataset, 2)(), device), dataset
+
+
+def no_dropout(cfg):
+    lc = cfg.model_config.layers_config
+    for fc in lc.rpn_fc_layers + lc.pc_pointcnn.fc_layers:
+        fc.dropout_rate = 0.0
+    cfg.model_config.path_drop_probabilities = [1.0, 1.0]
+    return cfg
+
+
+def check_fresh_folds(model):
+    """Every XConv's kept weight fold equals a fold of its weights now."""
+    import torch
+
+    from heterofusionrcnn_torch.models.extractors.pointcnn import XConv
+
+    for name, m in model.named_modules():
+        if isinstance(m, XConv):
+            kept, fresh = m.kernel_weights(), m.weights()
+            for field, t in vars(fresh).items():
+                if t is not None and not torch.equal(getattr(kept, field), t):
+                    raise AssertionError(f"{name}: the kept fold's {field} is stale")
+
+
+def val_forward(model, batch, kernels):
+    """One val-mode forward (eval, autograd off) of the trained module:
+    launches counted, the NMS and fused XConv calls recorded."""
+    import torch
+
+    from heterofusionrcnn_torch.runtime.train_state import RPN_BATCH_KEYS
+
+    model.eval()
+    model.mode = "val"
+    try:
+        for kern in kernels.values():
+            kern.launches = 0
+        with torch.no_grad(), recording(("fused_xconv", "xconv_split_epilogue",
+                                         "oriented_nms")) as calls:
+            out = model(*(batch[k] for k in RPN_BATCH_KEYS))
+            torch.cuda.synchronize()
+    finally:
+        model.mode = "train"
+    return out, calls, {k: kern.launches for k, kern in kernels.items()}
+
+
+def val_check(state, cfg, batch, kernels):
+    """The trained weights in val mode, twice around one more train step:
+    each forward's NMS calls bit-exact and fused XConv calls within the
+    gate against their plain versions, every kept weight fold equal to a
+    fresh fold, and the step refolding every XConv once."""
+    import torch
+
+    from heterofusionrcnn_torch.models.extractors.pointcnn import XConv
+    from heterofusionrcnn_torch.models.rpn import rpn_loss
+    from heterofusionrcnn_torch.runtime.train_state import make_rpn_train_step
+
+    model = state.model
+    xconvs = {n: m for n, m in model.named_modules() if isinstance(m, XConv)}
+    result = {}
+    for rnd in range(2):
+        if rnd:
+            folds = {n: m.weight_folds for n, m in xconvs.items()}
+            make_rpn_train_step(lambda p: rpn_loss(p, cfg.model_config))(state, batch)
+        out, calls, launches = val_forward(model, batch, kernels)
+        if rnd and any(m.weight_folds != folds[n] + 1 for n, m in xconvs.items()):
+            raise AssertionError("a train step did not refold every XConv exactly once")
+        check_fresh_folds(model)
+        if launches["xconv"] != len(xconvs) or launches["nms"] != 1:
+            raise AssertionError(f"val forward launches {launches}")
+        if len(calls["fused_xconv"]) != launches["xconv"]:
+            raise AssertionError("recorded XConv calls do not match the launches")
+        err = max(check_xconv(*a) for a, _ in calls["fused_xconv"])
+        for a, _ in calls["xconv_split_epilogue"]:
+            err = max(err, check_epilogue(*a))
+        for a, kw in calls["oriented_nms"]:
+            check_index_exact("nms", a, kw)
+        for key in ("proposals", "proposal_iou3d", "seg_softmax"):
+            if not bool(torch.isfinite(out[key]).all()):
+                raise AssertionError(f"val forward: non-finite {key}")
+        result[f"forward{rnd}"] = dict(launches=launches, xconv_max_abs_err=err,
+                                       proposals=int(out["num_proposals_before_padding"].sum()))
+    return result
+
+
+def params_agree(got, want, grads_got, grads_want, lr):
+    """State dict `got` (card) against `want` (CPU) after one Adam step,
+    with the gradients of that step on each side. Returns the names of the
+    gradients outside PARAM_TOL and of the tensors outside it after the
+    step, and {name: count} of the elements whose two gradients agree only
+    within PARAM_TOL's atol, allowed 2 x lr more after the step."""
+    bad, noise = [], {}
+    for name, w in want.items():
+        g = got[name].cpu()
+        if not g.is_floating_point():
+            continue
+        tol = PARAM_TOL["atol"] + PARAM_TOL["rtol"] * w.abs()
+        if name in grads_want:
+            gw, gg = grads_want[name], grads_got[name].cpu()
+            if not bool(((gg - gw).abs() <= PARAM_TOL["atol"] + PARAM_TOL["rtol"] * gw.abs()).all()):
+                bad.append("gradient of " + name)
+            unresolved = (gg - gw).abs() > PARAM_TOL["rtol"] * gw.abs()
+            if unresolved.any():
+                noise[name] = int(unresolved.sum())
+            tol = tol + 2 * lr * unresolved
+        if not bool(((g - w).abs() <= tol).all()):
+            bad.append(name)
+    return bad, noise
+
+
+def small_width_train_agrees(seed):
+    """One train step at `rpn_unittest` width on the card and on the CPU
+    (plain versions) from the same weights, dropout and path drop off:
+    losses within LOSS_TOL, the step's gradients, updated parameters and
+    statistics within PARAM_TOL (`params_agree`)."""
+    import copy
+
+    from heterofusionrcnn_torch.experiments import common
+    from heterofusionrcnn_torch.models.extractors.layers import init_weights
+    from heterofusionrcnn_torch.runtime.optimizer import ADAM_B1, build_optimizer
+    from heterofusionrcnn_torch.runtime.train_state import TrainState, make_rpn_train_step
+
+    cfg = no_dropout(common.resolve_config("rpn_unittest", KITTI_DIR))
+    batch, dataset = train_batch(cfg, "cpu", seed)
+    model, loss_fn = common.build_model(cfg, dataset, "train")
+    init_weights(model, seed)
+    results = []
+    for device in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(device)
+        state = TrainState.create(m, build_optimizer(m, cfg.train_config.optimizer, 1,
+                                                     cfg.train_config.grad_clip_norm), seed)
+        metrics = make_rpn_train_step(loss_fn)(state, {k: v.to(device) for k, v in batch.items()})
+        # The step's own clipped gradient: Adam's first moment after one
+        # step from zero is (1 - b1) times it. A second backward on the card
+        # need not repeat the step's rounding (its scatter-adds use atomics).
+        grads = {n: mu / (1 - ADAM_B1)
+                 for n, mu in state.optimizer.state_dict()["state"]["mu"].items()}
+        results.append(({k: float(v) for k, v in metrics.items()}, m.state_dict(), grads))
+    (want_l, want_sd, want_g), (got_l, got_sd, got_g) = results
+    losses_ok = all(abs(got_l[k] - want_l[k]) <= LOSS_TOL["atol"] + LOSS_TOL["rtol"] * abs(want_l[k])
+                    for k in want_l)
+    bad, noise = params_agree(got_sd, want_sd, got_g, want_g,
+                              cfg.train_config.optimizer.initial_learning_rate)
+    total = sum(p.numel() for p in model.parameters())
+    return losses_ok and not bad, dict(cpu=want_l, cuda=got_l, outside=bad,
+                                       widened_share=sum(noise.values()) / total,
+                                       widened_elements=noise)
+
+
+def loss_curve(steps=CURVE_STEPS):
+    """`steps` train steps of the full-width RPN on one repeated batch,
+    dropout and path drop off: the total loss of each."""
+    import torch
+
+    from heterofusionrcnn_torch.experiments import common
+    from heterofusionrcnn_torch.models.extractors.layers import init_weights
+    from heterofusionrcnn_torch.runtime.optimizer import build_optimizer
+    from heterofusionrcnn_torch.runtime.train_state import TrainState, make_rpn_train_step
+
+    cfg = no_dropout(common.resolve_config("rpn_multiclass", KITTI_DIR))
+    batch, dataset = train_batch(cfg, "cuda")
+    model, loss_fn = common.build_model(cfg, dataset, "train")
+    model = init_weights(model, SEED).cuda()
+    state = TrainState.create(model, build_optimizer(model, cfg.train_config.optimizer, 1,
+                                                     cfg.train_config.grad_clip_norm), SEED)
+    step = make_rpn_train_step(loss_fn)
+    curve = [float(step(state, batch)["total_loss"]) for _ in range(steps)]
+    del state, model
+    torch.cuda.empty_cache()
+    return curve
+
+
+def training_phase(kernels, out_root):
+    """The training CLI at full width (see TRAIN_STEPS), its checks, the
+    kernel rows of one recorded train step, the val-mode check, the small-
+    width card/CPU step, the loss curve and one profiled step."""
+    import numpy as np
+    import torch
+
+    from heterofusionrcnn_torch.configs.config import save_config
+    from heterofusionrcnn_torch.experiments import common, run_training
+    from heterofusionrcnn_torch.models.rpn import rpn_loss
+    from heterofusionrcnn_torch.runtime.checkpoint import CheckpointManager
+    from heterofusionrcnn_torch.runtime.train_state import make_rpn_train_step
+
+    root = os.path.join(out_root, "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = common.resolve_config("rpn_multiclass", KITTI_DIR)
+    cfg.train_config.checkpoint_interval = TRAIN_INTERVAL
+    cfg_path = os.path.join(root, "rpn_multiclass.json")
+    save_config(cfg, cfg_path)
+    argv = ["--pipeline_config", cfg_path, "--data_split", "train", "--output_root", root,
+            "--seed", str(SEED)]
+    monitor = StepMonitor(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad(), patched(run_training, "make_rpn_train_step", monitor.factory):
+        run_training.main(argv + ["--max_iterations", str(TRAIN_STEPS)])
+        state = run_training.main(argv + ["--max_iterations", str(TRAIN_RESUMED_TO)])
+    report = dict(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, steps=monitor.steps)
+    starts = [s["start"] for s in monitor.steps]
+    if starts != list(range(TRAIN_RESUMED_TO)) or state.step != TRAIN_RESUMED_TO:
+        raise AssertionError(f"steps started at {starts}, ended at {state.step}")
+    ckpts = CheckpointManager(os.path.join(root, "rpn_multiclass", "checkpoints")).all_steps()
+    if ckpts != [3, 6, 8]:
+        raise AssertionError(f"checkpoints {ckpts}")
+    for s in monitor.steps:
+        if not all(np.isfinite(v) for v in s["losses"].values()):
+            raise AssertionError(f"non-finite losses at step {s['start'] + 1}: {s['losses']}")
+        launched = s["launches"]
+        if not all(launched[k] for k in TRAIN_KERNELS) or launched["xconv"] or launched["nms"]:
+            raise AssertionError(f"train step {s['start'] + 1} launches {launched}")
+    recorded = monitor.steps[TRAIN_RECORDED_STEP]["launches"]
+    calls = monitor.calls
+    if expected_launches(calls, TRAIN_KERNELS) != {k: recorded[k] for k in TRAIN_KERNELS}:
+        raise AssertionError(f"recorded train-step calls do not match its launches {recorded}")
+    for name in ("knn", "fps"):
+        for a, kw in calls[KERNEL_OPS[name]]:
+            check_index_exact(name, a, kw)
+    step_ms = [s["ms"] for s in monitor.steps]
+    print(f"train steps ms (batch 2): " + " ".join(f"{t:.2f}" for t in step_ms)
+          + f"; peak device memory {report['peak_mem_gb']:.2f} GB", flush=True)
+
+    rows = {}
+    with torch.no_grad():
+        knn_rows(rows, calls, REPS, "_train")
+        fps_row(rows, calls, REPS, "_train", sweeps=False)
+    for name in TRAIN_KERNELS:
+        rows[name + "_train"]["launches"] = recorded[name]
+    finish_rows(rows)
+    del calls, monitor.calls
+
+    batch, _ = train_batch(cfg, "cuda")
+    report["val"] = val_check(state, cfg, batch, kernels)
+    step = make_rpn_train_step(lambda p: rpn_loss(p, cfg.model_config))
+    report["profile_step"] = profile_forward(lambda: step(state, batch), (), top=25)
+    del state, batch
+    torch.cuda.empty_cache()
+
+    agree, detail = small_width_train_agrees(SEED)
+    report["small_width_train"] = dict(agrees=agree, **detail)
+    print(f"rpn_unittest step, card against CPU: {len(detail['widened_elements'])} tensors hold "
+          f"{sum(detail['widened_elements'].values())} elements whose gradients agree only "
+          f"within 1e-5 absolute ({detail['widened_share']:.6f} of the parameters)", flush=True)
+    if not agree:
+        raise AssertionError(f"small-width train step: card and CPU disagree: {detail}")
+    curve = loss_curve()
+    report["loss_curve"] = curve
+    print("loss curve (one repeated batch): " + " ".join(f"{v:.4f}" for v in curve), flush=True)
+    if not curve[-1] < curve[0]:
+        raise AssertionError(f"{CURVE_STEPS} steps on one batch did not lower the loss: {curve}")
+    return report, rows
 
 
 def main(argv=None) -> int:
@@ -971,6 +1362,8 @@ def main(argv=None) -> int:
                                  f"(switches {'on' if switches else 'off'})")
 
     report["kitti"] = kitti_phase(kernels, os.path.join(args.out, "chip_smoke_kitti"))
+    report["training"], train_rows = training_phase(kernels, args.out)
+    rows.update(train_rows)
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

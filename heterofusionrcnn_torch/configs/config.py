@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import typing
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -338,24 +339,28 @@ def save_config(config: PipelineConfig, path: str) -> None:
         json.dump(_to_dict(config), f, indent=2, default=str)
 
 
+def _from_value(hint, val):
+    """A JSON value as the field type `hint` says: dataclasses (also inside
+    Optional and List) rebuilt, lists made tuples for Tuple fields."""
+    origin, args = typing.get_origin(hint), typing.get_args(hint)
+    if dataclasses.is_dataclass(hint):
+        return _from_dict(hint, val)
+    if origin is typing.Union and val is not None:
+        inner = [a for a in args if a is not type(None)]
+        return _from_value(inner[0], val) if len(inner) == 1 else val
+    if origin is list and args and isinstance(val, list):
+        return [_from_value(args[0], v) for v in val]
+    if origin is tuple and isinstance(val, list):
+        return tuple(val)
+    return val
+
+
 def _from_dict(cls, data):
     if not dataclasses.is_dataclass(cls) or not isinstance(data, dict):
         return data
-    kwargs = {}
-    hints = {f.name: f.type for f in dataclasses.fields(cls)}
-    for f in dataclasses.fields(cls):
-        if f.name not in data:
-            continue
-        val = data[f.name]
-        # Recurse into nested dataclass fields.
-        default = (
-            f.default_factory() if f.default_factory is not dataclasses.MISSING
-            else f.default
-        )
-        if dataclasses.is_dataclass(default):
-            kwargs[f.name] = _from_dict(type(default), val)
-        else:
-            kwargs[f.name] = val
+    hints = typing.get_type_hints(cls)
+    kwargs = {f.name: _from_value(hints[f.name], data[f.name])
+              for f in dataclasses.fields(cls) if f.name in data}
     return cls(**kwargs)
 
 

@@ -1,5 +1,6 @@
-"""Bin-based 3D box decoding (PyTorch port of
-heterofusionrcnn_tpu/core/bin_codec.py `decode`).
+"""Bin-based 3D box codec (PyTorch port of
+heterofusionrcnn_tpu/core/bin_codec.py: `decode` and the RPN's
+`encode_rpn`).
 
 A box is regressed relative to a reference point (an RPN point, or an RCNN
 proposal centre with its heading): x/z offsets as a bin over [-S, S] of
@@ -13,6 +14,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+_EPS_BIN = 1e-3
 
 
 def decode(
@@ -68,3 +71,45 @@ def decode(
     return torch.stack(
         [x, y, z, size[..., 0], size[..., 1], size[..., 2], theta], dim=-1
     )
+
+
+def _encode_common(dx, dz, dtheta_shift, dy, dsize, mean_sizes, S, DELTA, DELTA_THETA, K):
+    """The binning shared by the encoders: x/z offsets repeated over the K
+    classes (each class has its own S and DELTA), clipped into [0, 2S) and
+    binned; the shifted heading binned over [0, 2R)."""
+    S = torch.as_tensor(S, dtype=torch.float32, device=dx.device)
+    DELTA = torch.as_tensor(DELTA, dtype=torch.float32, device=dx.device)
+    dx = dx[..., None].expand(*dx.shape, K)
+    dz = dz[..., None].expand(*dz.shape, K)
+
+    dx_shift = torch.minimum((dx + S).clamp(min=0.0), 2.0 * S - _EPS_BIN)
+    bin_x = torch.floor(dx_shift / DELTA)
+    res_x_norm = (dx_shift - (bin_x + 0.5) * DELTA) / DELTA
+
+    dz_shift = torch.minimum((dz + S).clamp(min=0.0), 2.0 * S - _EPS_BIN)
+    bin_z = torch.floor(dz_shift / DELTA)
+    res_z_norm = (dz_shift - (bin_z + 0.5) * DELTA) / DELTA
+
+    bin_theta = torch.floor(dtheta_shift / DELTA_THETA)
+    res_theta_norm = (dtheta_shift - (bin_theta + 0.5) * DELTA_THETA) / (0.5 * DELTA_THETA)
+    return (bin_x.long(), res_x_norm, bin_z.long(), res_z_norm, bin_theta.long(),
+            res_theta_norm, dy, dsize / mean_sizes)
+
+
+def encode_rpn(ref_pts: torch.Tensor, boxes_3d: torch.Tensor, mean_sizes: torch.Tensor,
+               S, DELTA, R: float, DELTA_THETA: float, K: int):
+    """box_3d -> bin representation around RPN points (no reference heading).
+
+    Args:
+      ref_pts: (..., 3); boxes_3d: (..., 7); mean_sizes: (..., 3), the mean
+        size of each point's GT class.
+    Returns:
+      (bin_x, res_x_norm, bin_z, res_z_norm) each (..., K) (bins int64),
+      then bin_theta, res_theta_norm, res_y (...,) and res_size_norm (..., 3).
+    """
+    dx = boxes_3d[..., 0] - ref_pts[..., 0]
+    dy = boxes_3d[..., 1] - ref_pts[..., 1]
+    dz = boxes_3d[..., 2] - ref_pts[..., 2]
+    dsize = boxes_3d[..., 3:6] - mean_sizes
+    dtheta_shift = torch.clamp(boxes_3d[..., 6] + R, 0.0, 2.0 * R - _EPS_BIN)
+    return _encode_common(dx, dz, dtheta_shift, dy, dsize, mean_sizes, S, DELTA, DELTA_THETA, K)

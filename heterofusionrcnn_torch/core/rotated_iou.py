@@ -1,4 +1,5 @@
-"""Rotated-rectangle BEV overlap and IoU (Green's-theorem form).
+"""Rotated-rectangle BEV overlap and IoU (Green's-theorem form), and the
+3D IoU built on it.
 
 PyTorch port of heterofusionrcnn_tpu/core/rotated_iou.py. The overlap of
 two convex rectangles is half the line integral of (x dz - z dx) around the
@@ -14,6 +15,8 @@ This is also the plain version of the IoU inside the oriented-NMS kernel
 from __future__ import annotations
 
 import torch
+
+from heterofusionrcnn_torch.core.geometry import boxes_3d_to_bev
 
 _EPS = 1e-8
 
@@ -82,3 +85,34 @@ def bev_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     sa = (boxes_a[:, 2] - boxes_a[:, 0]) * (boxes_a[:, 3] - boxes_a[:, 1])
     sb = (boxes_b[:, 2] - boxes_b[:, 0]) * (boxes_b[:, 3] - boxes_b[:, 1])
     return ov / torch.clamp(sa[:, None] + sb[None, :] - ov, min=_EPS)
+
+
+def box_3d_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor):
+    """Pairwise 3D IoU: BEV overlap times height overlap, with any leading
+    batch dims.
+
+    Args:
+      boxes_a: (..., N, 7), boxes_b: (..., M, 7) box_3d.
+    Returns:
+      (iou_3d (..., N, M), iou_2d (..., N, M)).
+    """
+    bev_a = boxes_3d_to_bev(boxes_a)
+    bev_b = boxes_3d_to_bev(boxes_b)
+    overlaps_bev = bev_overlap(bev_a[..., :, None, :], bev_b[..., None, :, :])
+    sa = (bev_a[..., 2] - bev_a[..., 0]) * (bev_a[..., 3] - bev_a[..., 1])
+    sb = (bev_b[..., 2] - bev_b[..., 0]) * (bev_b[..., 3] - bev_b[..., 1])
+    union = sa[..., :, None] + sb[..., None, :] - overlaps_bev
+    iou_2d = overlaps_bev / torch.clamp(union, min=_EPS)
+
+    # y points down; a box spans [y - h, y].
+    a_min = (boxes_a[..., 1] - boxes_a[..., 5])[..., :, None]
+    a_max = boxes_a[..., 1][..., :, None]
+    b_min = (boxes_b[..., 1] - boxes_b[..., 5])[..., None, :]
+    b_max = boxes_b[..., 1][..., None, :]
+    overlaps_h = torch.clamp(torch.minimum(a_max, b_max) - torch.maximum(a_min, b_min), min=0.0)
+
+    overlaps_3d = overlaps_bev * overlaps_h
+    vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5])[..., :, None]
+    vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5])[..., None, :]
+    iou_3d = overlaps_3d / torch.clamp(vol_a + vol_b - overlaps_3d, min=1e-7)
+    return iou_3d, iou_2d

@@ -1,6 +1,7 @@
-"""Shared experiment wiring of the port: config resolution, the dataset and
-the test-mode detector (the inference half of
-heterofusionrcnn_tpu/experiments/common.py; training is not ported yet)."""
+"""Shared experiment wiring of the port (heterofusionrcnn_tpu/
+experiments/common.py): config resolution, the dataset, the test-mode
+two-stage detector, the RPN in train or val mode with its loss, and the
+RPN batch function. The RCNN's training loader is not ported yet."""
 
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from heterofusionrcnn_torch.configs import config as config_lib
 from heterofusionrcnn_torch.configs import presets
 from heterofusionrcnn_torch.datasets.kitti.dataset import KittiDataset
 from heterofusionrcnn_torch.inference import TwoStageDetector
+from heterofusionrcnn_torch.models.rpn import RpnModel, rpn_loss
+from heterofusionrcnn_torch.runtime.train_state import RPN_BATCH_KEYS
 
 PRESETS = {
     "rpn_multiclass": presets.rpn_multiclass,
@@ -56,8 +59,39 @@ def cluster_sizes_tuple(dataset):
     )
 
 
-def build_model(rpn_cfg, rcnn_cfg, dataset, conv_kernels: bool = False,
-                crop_kernel: bool = False) -> TwoStageDetector:
+def build_model(cfg, dataset, mode: str):
+    """The RPN of `cfg` in `mode` ("train", "val" or "test") with the
+    dataset's classes and mean sizes, on the CPU, and its loss function
+    (predictions -> (loss_dict, total)). An RCNN config raises: its
+    training loader (`rcnn_sampling.py`) is not ported yet."""
+    mc = cfg.model_config
+    if mc.model_name != "rpn_model":
+        raise NotImplementedError(
+            f"{mc.model_name}: training the RCNN needs its loader (rcnn_sampling.py), "
+            "which is not ported yet")
+    model = RpnModel(mc, dataset.num_classes, cluster_sizes_tuple(dataset),
+                     save_rpn_feature=False, mode=mode)
+    return model, lambda preds: rpn_loss(preds, mc)
+
+
+def make_batch_fn(cfg, dataset, batch_size: int):
+    """next_batch() -> the RPN's host batch (numpy, exactly the
+    `RPN_BATCH_KEYS` that its train step reads), shuffled, at the config's
+    point count and image size."""
+    ic = cfg.model_config.input_config
+
+    def next_batch():
+        batch, _ = dataset.next_batch(
+            batch_size, shuffle=True, model="rpn", pc_sample_pts=ic.pc_sample_pts,
+            img_w=ic.img_dims_w, img_h=ic.img_dims_h,
+        )
+        return {k: batch[k] for k in RPN_BATCH_KEYS}
+
+    return next_batch
+
+
+def build_detector(rpn_cfg, rcnn_cfg, dataset, conv_kernels: bool = False,
+                   crop_kernel: bool = False) -> TwoStageDetector:
     """The test-mode RPN -> RCNN detector with the dataset's classes, mean
     sizes and far BEV extent, in eval mode, on the CPU."""
     return TwoStageDetector(

@@ -88,7 +88,7 @@ def main(argv=None) -> dict:
             c.model_config.layers_config.img_vgg_pyr.downsample = args.img_downsample
 
     dataset = common.build_dataset(rpn_cfg, "test", args.data_split)
-    det = common.build_model(rpn_cfg, rcnn_cfg, dataset, args.conv_kernels, args.crop_kernel)
+    det = common.build_detector(rpn_cfg, rcnn_cfg, dataset, args.conv_kernels, args.crop_kernel)
     rpn_sd, rpn_step = load_state(args.rpn_checkpoint)
     rcnn_sd, rcnn_step = load_state(args.rcnn_checkpoint)
     det.rpn.load_state_dict(rpn_sd)

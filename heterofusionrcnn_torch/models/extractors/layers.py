@@ -4,7 +4,11 @@ heterofusionrcnn_tpu/models/extractors/layers.py).
 Submodule and parameter names follow the flax param tree (`Dense_0`,
 `BatchNorm_0`, `depthwise`, ...) so `heterofusionrcnn_torch.convert` maps
 checkpoints by path. The pointfly convention is linear -> activation ->
-BatchNorm, BN with flax momentum 0.99 (torch 0.01) and epsilon 1e-3.
+BatchNorm, BN with flax momentum 0.99 (torch 0.01) and epsilon 1e-3. In
+training the BatchNorms follow flax, not torch: they normalise with the
+biased batch variance and move their running statistics with it (torch
+would use the unbiased one there), and dropout draws its mask from a
+generator the caller passes.
 Point layers work on channels-last (..., C) tensors; the image layers on
 NCHW, their callers convert from the NHWC of the public API. With
 `conv_kernel=True` the image layers run, in eval mode, as one fused
@@ -16,7 +20,7 @@ BatchNorm, the JAX package's default path.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +32,24 @@ BN_EPS = 1e-3
 BN_MOMENTUM = 0.01
 
 
+def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                     channel_dim: int) -> torch.Tensor:
+    """flax `nn.BatchNorm` in training: normalise by the batch mean and the
+    biased batch variance E[x^2] - E[x]^2 (clamped at 0, flax's fast
+    variance) over every dimension but `channel_dim`, and move the running
+    statistics to (1 - momentum) * running + momentum * batch."""
+    dims = [d for d in range(x.dim()) if d != channel_dim % x.dim()]
+    shape = [1] * x.dim()
+    shape[channel_dim] = x.shape[channel_dim]
+    mean = x.mean(dims)
+    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean.reshape(shape)) * mul.reshape(shape) + bn.bias.reshape(shape)
+
+
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over the last dimension of a (..., C) tensor."""
 
@@ -35,6 +57,8 @@ class BatchNorm(nn.BatchNorm1d):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, x):
+        if self.training:
+            return batch_norm_train(self, x, -1)
         shape = x.shape
         return super().forward(x.reshape(-1, shape[-1])).reshape(shape)
 
@@ -42,6 +66,31 @@ class BatchNorm(nn.BatchNorm1d):
         """Inference affine (s, t) with BN(x) = x * s + t."""
         s = self.weight / torch.sqrt(self.running_var + self.eps)
         return s, self.bias - self.running_mean * s
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm over the channels of an NCHW tensor."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x):
+        if self.training:
+            return batch_norm_train(self, x, 1)
+        return super().forward(x)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout` in training: keep each element with probability
+    1 - rate (a uniform draw from `generator` below it) and scale the kept
+    ones by 1 / (1 - rate)."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class DenseBN(nn.Module):
@@ -129,7 +178,7 @@ class SeparableConvOverK(nn.Module):
         return out
 
 
-def fold_bn_affine(conv: nn.Module, bn: nn.BatchNorm2d):
+def fold_bn_affine(conv: nn.Module, bn: BatchNorm2d):
     """Inference BatchNorm (epsilon 1e-3) and the conv bias folded into a
     per-channel (scale, shift): bn(conv(x)) = conv_nobias(x) * scale + shift
     (the JAX package's `layers._fold_bn_affine`)."""
@@ -147,7 +196,7 @@ class ConvBNRelu(nn.Module):
                  conv_kernel: bool = False):
         super().__init__()
         self.Conv_0 = nn.Conv2d(in_channels, features, kernel, padding=kernel // 2)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.BatchNorm_0 = BatchNorm2d(features)
         self.conv_kernel = conv_kernel and kernel == 3
 
     def forward(self, x):
@@ -171,7 +220,7 @@ class ConvTransposeBNRelu(nn.Module):
                  conv_kernel: bool = False):
         super().__init__()
         self.ConvTranspose_0 = nn.ConvTranspose2d(in_channels, features, kernel, stride=2)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.BatchNorm_0 = BatchNorm2d(features)
         self.conv_kernel = conv_kernel and kernel == 3
 
     def forward(self, x):

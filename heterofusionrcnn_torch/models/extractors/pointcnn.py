@@ -2,13 +2,18 @@
 heterofusionrcnn_tpu/models/extractors/pointcnn.py): an XConv encoder
 pyramid and an XDConv decoder back to the input points.
 
-Inference only: every XConv runs through the fused XConv op
+At inference every XConv runs through the fused XConv op
 (`ops.xconv.fused_xconv`, the CUDA kernel on the card), as the JAX package
 routes inference through its fused Pallas kernel (`_fused_xconv_mode`).
 The modules hold the same parameters as the flax tree; `XConv.weights()`
 folds them for the fused op, and `XConv.kernel_weights()` keeps that fold
 (with the kernel's arranged Wc on the card) until a parameter or buffer
-it reads changes.
+it reads changes. The fused op has no backward: in training, and wherever
+autograd is on, an XConv runs its layers one by one (the JAX package's
+XLA path), with BatchNorm on batch statistics in training. In eval mode
+with autograd on, the CPU takes the same layer-by-layer path (the JAX
+package's CPU path); on the card that call raises instead of leaving the
+kernel.
 """
 
 from __future__ import annotations
@@ -25,8 +30,9 @@ from heterofusionrcnn_torch.models.extractors.layers import (
     DenseBN,
     DepthwiseConvOverK,
     SeparableConvOverK,
+    dropout,
 )
-from heterofusionrcnn_torch.ops.grouping import knn_point
+from heterofusionrcnn_torch.ops.grouping import group_point, knn_point
 from heterofusionrcnn_torch.ops.sampling import farthest_point_sample, gather_point
 from heterofusionrcnn_torch.ops.xconv import XConvWeights, fused_xconv, xconv_weight_operand
 
@@ -95,19 +101,53 @@ class XConv(nn.Module):
         if self._folded is None or self._folded[0] != key:
             with torch.no_grad():
                 w = self.weights()
+                # Keep no views of the parameters: once a parameter changed
+                # in place, a kept view would make the module uncopyable.
+                for name, t in vars(w).items():
+                    if t is not None and t._base is not None:
+                        setattr(w, name, t.clone())
                 if w.wc.is_cuda:
                     w.wc_operand = xconv_weight_operand(w.wc, w.w1.shape[1])
             self._folded = (key, w)
             self.weight_folds += 1
         return self._folded[1]
 
+    def unfused(self, pts, fts, qrs, idx):
+        """The XConv layer by layer (JAX `XConv.__call__` :91-200):
+        neighbour gather and local coordinates, the two lift DenseBNs, the
+        X-transform X_0/X_1/X_2 applied to [lifted | neighbour features],
+        then the separable conv over the neighbours."""
+        b, p, k = idx.shape
+        local = group_point(pts, idx) - qrs[:, :, None, :]  # (B, P, K, 3)
+        fin = self.nn_fts_from_pts(self.nn_fts_from_pts_0(local))
+        if fts is not None:
+            fin = torch.cat([fin, group_point(fts, idx)], dim=-1)
+        if self.with_X_transformation:
+            x0 = self.X_0(local).reshape(b, p, k, k)
+            x1 = self.X_1(x0).reshape(b, p, k, k)
+            x2 = self.X_2(x1).reshape(b, p, k, k)
+            fin = torch.einsum("bpkj,bpjc->bpkc", x2, fin)
+        return self.fts_conv(fin)
+
     def forward(self, pts, fts, qrs, nn_idx=None):
         """pts (B, N, 3), fts (B, N, Cp) or None, qrs (B, P, 3), optional
-        precomputed (B, P, K*D) KNN indices -> (B, P, out_channels)."""
+        precomputed (B, P, K*D) KNN indices -> (B, P, out_channels). Runs
+        `unfused` in training and the fused op in eval mode. An eval call
+        that autograd would differentiate runs `unfused` on the CPU and
+        raises on the card, where the fused kernel has no backward."""
         if nn_idx is None:
             _, nn_idx = knn_point(self.K * self.D, pts, qrs)
         idx = nn_idx[:, :, :: self.D] if self.D > 1 else nn_idx
-        out = fused_xconv(pts, fts, qrs, idx.contiguous(), self.kernel_weights())
+        wants_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (pts, fts, qrs, *self._folded_tensors()) if t is not None)
+        if self.training or (wants_grad and not pts.is_cuda):
+            out = self.unfused(pts, fts, qrs, idx)
+        elif wants_grad:
+            raise RuntimeError(
+                "the fused XConv kernel has no backward: call an eval-mode "
+                "forward on the card under torch.no_grad(), or train() the module")
+        else:
+            out = fused_xconv(pts, fts, qrs, idx.contiguous(), self.kernel_weights())
         if self.with_global:
             g = self.fts_global(self.fts_global_0(qrs))
             return torch.cat([g, out], dim=-1)
@@ -158,7 +198,9 @@ class PointCNN(nn.Module):
             out_ch.append(fc.C)
         self.out_channels = out_ch[-1]
 
-    def forward(self, points: torch.Tensor, features: Optional[torch.Tensor]):
+    def forward(self, points: torch.Tensor, features: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        """`generator`: the dropout draws of the fc layers in training."""
         cfg = self.config
         xconvs = cfg.xconv_layers
         layer_pts = [points]
@@ -212,6 +254,8 @@ class PointCNN(nn.Module):
             layer_fts.append(fused)
 
         output_fts = layer_fts[-1]
-        for i in range(len(cfg.fc_layers)):
+        for i, fc in enumerate(cfg.fc_layers):
             output_fts = getattr(self, f"fc{i}")(output_fts)
+            if self.training:
+                output_fts = dropout(output_fts, fc.dropout_rate, generator)
         return layer_pts[-1], output_fts

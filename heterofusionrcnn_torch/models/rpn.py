@@ -1,17 +1,30 @@
-"""Stage-1 RPN, test mode (PyTorch port of
-heterofusionrcnn_tpu/models/rpn.py `RpnModel` with mode='test').
+"""Stage-1 RPN (PyTorch port of heterofusionrcnn_tpu/models/rpn.py
+`RpnModel` and `rpn_loss`), in the JAX model's three modes:
+
+  - train: the heads and the GT encodings for `rpn_loss` (no decode, no
+    NMS), path drop and dropout in training;
+  - val: the same GT encodings, plus decode, top-k and oriented NMS with
+    the *train* pre/post-NMS sizes and threshold, and the proposals' IoU
+    against the GT boxes;
+  - test: the foreground mask from the predicted segmentation, proposals
+    with the test sizes.
 
 PointCNN point features and VGG-pyramid image features, the per-point
-image-feature gather, the segmentation head, concat fusion, the bin-based
-proposal head and its decode, then per frame: top-k by foreground score and
-oriented NMS (all frames in one kernel launch on the card).
+image-feature gather, the segmentation head, concat (or mean) fusion, the
+bin-based proposal head and its decode, then per frame: top-k by foreground
+score and oriented NMS (all frames in one kernel launch on the card).
+BatchNorm, dropout and path drop follow the module's `training` flag, as
+the JAX model's `training` argument (whose default is mode == "train").
+Every random draw comes from a generator the caller passes: "dropout" and
+"path_drop", the names of the flax rng streams.
 
-Train and val modes (losses, GT encodings, IoU metrics) are not ported yet.
+The non-fixed NMS path (`rpn_fixed_num_proposal_nms=False`, the FG
+resample) is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,13 +32,20 @@ from torch import nn
 
 from heterofusionrcnn_torch.configs.config import ModelConfig
 from heterofusionrcnn_torch.core import bin_codec
+from heterofusionrcnn_torch.core.losses import (
+    one_hot,
+    weighted_focal,
+    weighted_smooth_l1,
+    weighted_softmax_ce,
+)
 from heterofusionrcnn_torch.core.projection import rect_to_image
+from heterofusionrcnn_torch.core.rotated_iou import box_3d_iou
 from heterofusionrcnn_torch.models.extractors.img_vgg_pyr import (
     ImgVgg,
     ImgVggPyr,
     preprocess_image,
 )
-from heterofusionrcnn_torch.models.extractors.layers import DenseBN
+from heterofusionrcnn_torch.models.extractors.layers import DenseBN, dropout
 from heterofusionrcnn_torch.models.extractors.pointcnn import PointCNN
 from heterofusionrcnn_torch.ops.nms import oriented_nms_boxes_3d
 
@@ -77,6 +97,23 @@ def take_class(x: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
     return x.gather(-2, idx).squeeze(-2)
 
 
+def take_bin(x: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+    """x (..., C) by bins (...) -> (...)."""
+    return x.gather(-1, bins[..., None]).squeeze(-1)
+
+
+def create_path_drop_masks(p_img: float, p_pc: float, random_values: torch.Tensor):
+    """Path-drop coin flips from three uniforms: keep each branch with its
+    probability; where both die, the third flip revives exactly one.
+    Returns (image mask, point mask), float 0-d tensors."""
+    img = (random_values[0] < p_img).float()
+    pc = (random_values[1] < p_pc).float()
+    both_dead = (img + pc) < 0.5
+    img_second = (random_values[2] > 0.5).float()
+    pc_second = (random_values[2] <= 0.5).float()
+    return torch.where(both_dead, img_second, img), torch.where(both_dead, pc_second, pc)
+
+
 def descending_order(scores: torch.Tensor) -> torch.Tensor:
     """Indices sorting each row by descending score, the lower index first
     on ties (`jax.lax.top_k`'s order)."""
@@ -84,11 +121,12 @@ def descending_order(scores: torch.Tensor) -> torch.Tensor:
 
 
 class RpnModel(nn.Module):
-    """Stage-1 proposal network, test mode."""
+    """Stage-1 proposal network. `mode`: "train", "val" or "test"."""
 
     def __init__(self, config: ModelConfig, num_classes: int,
                  cluster_sizes: Sequence[Tuple[float, float, float]],
-                 save_rpn_feature: bool = True, conv_kernels: bool = False):
+                 save_rpn_feature: bool = True, conv_kernels: bool = False,
+                 mode: str = "test"):
         """`conv_kernels`: run the image branch's 3x3 convs through the fused
         kernels of `ops/conv.py` (eval mode)."""
         super().__init__()
@@ -100,9 +138,12 @@ class RpnModel(nn.Module):
             raise NotImplementedError("the non-fixed NMS path is not ported")
         if config.compute_dtype != "float32":
             raise NotImplementedError(f"compute_dtype {config.compute_dtype!r} is not ported")
+        if mode not in ("train", "val", "test"):
+            raise ValueError(f"unknown mode {mode!r}")
         self.config = config
         self.num_classes = num_classes
         self.save_rpn_feature = save_rpn_feature
+        self.mode = mode
         self.register_buffer(
             "cluster_sizes",
             torch.tensor(cluster_sizes, dtype=torch.float32).reshape(-1, 3),
@@ -126,18 +167,28 @@ class RpnModel(nn.Module):
         out_dim = (nbx * 2 + nbz * 2 + nbt * 2 + 4) * k
         self.fc_output = DenseBN(c, out_dim, use_bn=False, activation=False)
 
-    def forward(self, pc_input, img_input, calib_p2) -> Dict[str, torch.Tensor]:
-        """pc_input (B, P, 4), img_input (B, H, W, 3) NHWC, calib_p2 (B, 3, 4)."""
+    def forward(self, pc_input, img_input, calib_p2, label_segs=None, label_regs=None,
+                label_boxes=None,
+                generators: Optional[Dict[str, torch.Generator]] = None) -> Dict[str, torch.Tensor]:
+        """pc_input (B, P, 4), img_input (B, H, W, 3) NHWC, calib_p2 (B, 3, 4);
+        in train and val mode label_segs (B, P) (-1 ignore, 0 background,
+        1..K), label_regs (B, P, 7) and, for val's IoUs, label_boxes
+        (B, m, 7). `generators`: {"dropout", "path_drop"} in training."""
         cfg = self.config
         rpn_cfg = cfg.rpn_config
+        training = self.training
+        gens = generators or {}
         b, p = pc_input.shape[:2]
         k = self.num_classes
         S, DELTA, nbx, nbz, R, DELTA_THETA, nbt = self.bins
+        if self.mode in ("train", "val") and (label_segs is None or label_regs is None):
+            raise ValueError(f"{self.mode} mode needs label_segs and label_regs")
 
         pc_pts = pc_input[..., :3]
         pc_intensity = pc_input[..., 3:4]
         pc_pts_out, pc_fts = self.pc_pointcnn(
-            pc_pts, pc_intensity if rpn_cfg.rpn_use_intensity_feature else None
+            pc_pts, pc_intensity if rpn_cfg.rpn_use_intensity_feature else None,
+            gens.get("dropout"),
         )
         img_fts = self.img_vgg_pyr(preprocess_image(img_input))
 
@@ -157,43 +208,49 @@ class RpnModel(nn.Module):
         fg_softmax = seg_softmax[..., 1:]
         seg_scores = fg_softmax.amax(-1)
         seg_fg_preds = fg_softmax.argmax(-1)
-        foreground_mask = seg_preds > 0
+        if self.mode in ("train", "val"):
+            foreground_mask = label_segs > 0
+        else:
+            foreground_mask = seg_preds > 0
 
+        proposal_fts, proposal_img_fts, fusion_mean_div = pc_fts, proj_img_fts, 2.0
+        p_img, p_pc = cfg.path_drop_probabilities
+        if training and not (p_img == p_pc == 1.0):
+            if "path_drop" not in gens:
+                raise ValueError("path drop in training needs a 'path_drop' generator")
+            uniforms = torch.rand(3, generator=gens["path_drop"], device=pc_input.device)
+            img_mask, pc_mask = create_path_drop_masks(p_img, p_pc, uniforms)
+            proposal_fts = proposal_fts * pc_mask
+            proposal_img_fts = proposal_img_fts * img_mask
+            fusion_mean_div = img_mask + pc_mask
         if rpn_cfg.rpn_fusion_method == "mean":
-            fused = (pc_fts + proj_img_fts) / 2.0
+            fused = (proposal_fts + proposal_img_fts) / fusion_mean_div
         elif rpn_cfg.rpn_fusion_method == "concat":
-            fused = torch.cat([pc_fts, proj_img_fts], dim=-1)
+            fused = torch.cat([proposal_fts, proposal_img_fts], dim=-1)
         else:
             raise ValueError(rpn_cfg.rpn_fusion_method)
         x = fused
-        for i in range(len(cfg.layers_config.rpn_fc_layers)):
+        for i, fc in enumerate(cfg.layers_config.rpn_fc_layers):
             x = getattr(self, f"fc{i}")(x)
+            if training:
+                x = dropout(x, fc.dropout_rate, gens.get("dropout"))
         out = self.fc_output(x).reshape(b, p, k, -1)
-
-        mean_sizes = self.cluster_sizes.expand(b, p, k, 3)
         fields = parse_bin_head(out, nbx, nbz, nbt)
-        proposals_all = decode_bins(fields, pc_pts_out, None, mean_sizes,
-                                    S, DELTA, R, DELTA_THETA)  # (B, P, K, 7)
-        proposals = take_class(proposals_all, seg_fg_preds)  # (B, P, 7)
 
-        pre = min(rpn_cfg.rpn_test_pre_nms_size, p)
-        post = rpn_cfg.rpn_test_post_nms_size
-        top_idx = descending_order(seg_scores)[:, :pre]
-        top_conf = seg_scores.gather(1, top_idx)
-        top_props = proposals.gather(1, top_idx[..., None].expand(-1, -1, 7))
-        keep, keep_valid = oriented_nms_boxes_3d(
-            top_props, top_conf, rpn_cfg.rpn_test_nms_iou_thresh, post
-        )
-        safe = keep.clamp(min=0).long()
         predictions = {
             "seg_softmax": seg_softmax,
             "seg_preds": seg_preds,
             "foreground_mask": foreground_mask,
-            "proposals": top_props.gather(1, safe[..., None].expand(-1, -1, 7)),
-            "proposal_scores": top_conf.gather(1, safe) * keep_valid,
-            "proposal_valid": keep_valid,
-            "num_proposals_before_padding": keep_valid.sum(-1),
         }
+        if self.mode in ("val", "test"):
+            predictions.update(self._proposals(fields, pc_pts_out, seg_scores, seg_fg_preds))
+            if self.mode == "val" and label_boxes is not None:
+                iou3d, iou2d = box_3d_iou(predictions["proposals"], label_boxes)
+                predictions["proposal_iou3d"] = iou3d  # (B, post, m)
+                predictions["proposal_iou2d"] = iou2d
+        if self.mode in ("train", "val"):
+            predictions.update(self._targets(fields, pc_pts_out, label_segs, label_regs))
+            predictions["seg_accuracy"] = (seg_preds == label_segs.long()).float().mean()
         if self.save_rpn_feature:
             predictions.update(
                 rpn_pts=pc_pts_out,
@@ -204,3 +261,103 @@ class RpnModel(nn.Module):
                 img_feature_map=img_fts,
             )
         return predictions
+
+    def _proposals(self, fields, pc_pts_out, seg_scores, seg_fg_preds):
+        """Decode every point's box of its predicted class, keep the top
+        `pre` by foreground score and run oriented NMS per frame (val mode
+        with the train sizes and threshold, test mode with the test ones)."""
+        rpn_cfg = self.config.rpn_config
+        S, DELTA, _, _, R, DELTA_THETA, _ = self.bins
+        b, p = seg_scores.shape
+        mean_sizes = self.cluster_sizes.expand(b, p, self.num_classes, 3)
+        proposals_all = decode_bins(fields, pc_pts_out, None, mean_sizes,
+                                    S, DELTA, R, DELTA_THETA)  # (B, P, K, 7)
+        proposals = take_class(proposals_all, seg_fg_preds)  # (B, P, 7)
+        if self.mode == "val":
+            pre, post = rpn_cfg.rpn_train_pre_nms_size, rpn_cfg.rpn_train_post_nms_size
+            thresh = rpn_cfg.rpn_train_nms_iou_thresh
+        else:
+            pre, post = rpn_cfg.rpn_test_pre_nms_size, rpn_cfg.rpn_test_post_nms_size
+            thresh = rpn_cfg.rpn_test_nms_iou_thresh
+        top_idx = descending_order(seg_scores)[:, :min(pre, p)]
+        top_conf = seg_scores.gather(1, top_idx)
+        top_props = proposals.gather(1, top_idx[..., None].expand(-1, -1, 7))
+        keep, keep_valid = oriented_nms_boxes_3d(top_props, top_conf, thresh, post)
+        safe = keep.clamp(min=0).long()
+        return {
+            "proposals": top_props.gather(1, safe[..., None].expand(-1, -1, 7)),
+            "proposal_scores": top_conf.gather(1, safe) * keep_valid,
+            "proposal_valid": keep_valid,
+            "num_proposals_before_padding": keep_valid.sum(-1),
+        }
+
+    def _targets(self, fields, pc_pts_out, label_segs, label_regs):
+        """GT encodings for `rpn_loss`: the bin targets of each point's GT
+        box under its GT class, and the head's outputs gathered at that
+        class and at the GT bins."""
+        S, DELTA, nbx, nbz, R, DELTA_THETA, nbt = self.bins
+        k = self.num_classes
+        label_cls = label_segs.long()  # -1 ignore, 0 background, 1..K
+        # Mean size per point for its GT class; background takes the mean of
+        # the class means.
+        size_table = torch.cat([self.cluster_sizes.mean(0, keepdim=True), self.cluster_sizes])
+        mean_sizes_pt = size_table[label_cls.clamp(0, k)]  # (B, P, 3)
+        (bin_x_gt, res_x_gt, bin_z_gt, res_z_gt, bin_theta_gt, res_theta_gt, res_y_gt,
+         res_size_gt) = bin_codec.encode_rpn(pc_pts_out, label_regs, mean_sizes_pt,
+                                             S, DELTA, R, DELTA_THETA, k)
+        cls0 = (label_cls - 1).clamp(0, k - 1)  # 0-based foreground class
+
+        def at_class(t):  # (B, P, K) -> (B, P); (B, P, K, F) -> (B, P, F)
+            return take_class(t[..., None], cls0)[..., 0] if t.dim() == 3 else take_class(t, cls0)
+
+        bin_x_gt, res_x_gt = at_class(bin_x_gt), at_class(res_x_gt)
+        bin_z_gt, res_z_gt = at_class(bin_z_gt), at_class(res_z_gt)
+        return {
+            "seg_gt_one_hot": one_hot(label_cls, k + 1),
+            "cls_preds": (at_class(fields["bin_x"]), at_class(fields["bin_z"]),
+                          at_class(fields["bin_t"])),
+            "cls_gts": (one_hot(bin_x_gt, nbx), one_hot(bin_z_gt, nbz),
+                        one_hot(bin_theta_gt, nbt)),
+            "reg_preds": (take_bin(at_class(fields["res_x"]), bin_x_gt),
+                          take_bin(at_class(fields["res_z"]), bin_z_gt),
+                          take_bin(at_class(fields["res_t"]), bin_theta_gt),
+                          at_class(fields["res_y"]),
+                          at_class(fields["res_size"])),
+            "reg_gts": (res_x_gt, res_z_gt, res_theta_gt, res_y_gt, res_size_gt),
+        }
+
+
+def rpn_loss(predictions: Dict[str, torch.Tensor], config: ModelConfig):
+    """RPN loss: the focal segmentation loss over all points, normalised by
+    their count, plus the bins' cross-entropy and the residuals' smooth L1,
+    both normalised by the foreground count (0 without foreground).
+
+    Returns:
+      (loss_dict, total_loss).
+    """
+    lw = config.loss_config
+    seg_softmax = predictions["seg_softmax"]
+    # Ignore-label points (-1) have a zero one-hot row, hence no loss.
+    num_total = seg_softmax.shape[0] * seg_softmax.shape[1]
+    seg_loss = weighted_focal(seg_softmax, predictions["seg_gt_one_hot"],
+                              weight=lw.seg_loss_weight).sum() / num_total
+
+    fg = predictions["foreground_mask"].float()
+    num_fg = fg.sum()
+    safe_fg = num_fg.clamp(min=1.0)
+    zero = torch.zeros((), device=fg.device)
+
+    cls_loss = 0.0
+    for logits, gt in zip(predictions["cls_preds"], predictions["cls_gts"]):
+        cls_loss = cls_loss + (weighted_softmax_ce(logits, gt, weight=lw.cls_loss_weight) * fg).sum()
+    cls_loss = torch.where(num_fg > 0, cls_loss / safe_fg, zero)
+
+    reg_loss = 0.0
+    for pred, gt in zip(predictions["reg_preds"], predictions["reg_gts"]):
+        if pred.dim() == 2:  # scalar residuals: add a feature axis
+            pred, gt = pred[..., None], gt[..., None]
+        reg_loss = reg_loss + (weighted_smooth_l1(pred, gt, weight=lw.reg_loss_weight) * fg).sum()
+    reg_loss = torch.where(num_fg > 0, reg_loss / safe_fg, zero)
+
+    total = seg_loss + cls_loss + reg_loss
+    return {"rpn_seg_loss": seg_loss, "rpn_bin_cls_loss": cls_loss, "rpn_reg_loss": reg_loss}, total

@@ -1,0 +1,81 @@
+"""Train state and the RPN train step (PyTorch port of
+heterofusionrcnn_tpu/runtime/train_state.py).
+
+`TrainState` holds what the JAX package's `TrainState` pytree holds, as
+live objects: the module (its parameters and BatchNorm statistics), the
+optimizer (its moments and the parameter EMA), the step count, and the
+generators of the random draws ("dropout" and "path_drop", the flax rng
+streams) on the module's device. A step updates all of them in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from heterofusionrcnn_torch.runtime.optimizer import Optimizer
+
+RPN_BATCH_KEYS = (
+    "point_cloud", "image_input", "stereo_calib_p2",
+    "label_seg", "label_reg", "label_boxes_3d",
+)
+
+
+@dataclass
+class TrainState:
+    """Module + optimizer (with its EMA) + step + generators."""
+
+    model: nn.Module
+    optimizer: Optimizer
+    generators: Dict[str, torch.Generator]
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: nn.Module, optimizer: Optimizer, seed: int = 0) -> "TrainState":
+        """The state at step 0, its generators on the model's device seeded
+        seed + 1 ("dropout") and seed + 2 ("path_drop"), as the JAX trainer
+        seeds those rng streams (the weights take `seed` itself)."""
+        device = next(model.parameters()).device
+        generators = {name: torch.Generator(device=device).manual_seed(seed + i)
+                      for i, name in ((1, "dropout"), (2, "path_drop"))}
+        return cls(model, optimizer, generators)
+
+    @property
+    def ema(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The optimizer's parameter EMA by name (None when it keeps none)."""
+        return self.optimizer.ema_state_dict()
+
+
+def make_rpn_train_step(loss_fn: Callable) -> Callable[[TrainState, Dict[str, torch.Tensor]],
+                                                       Dict[str, torch.Tensor]]:
+    """The RPN train step.
+
+    Args:
+      loss_fn: predictions -> (loss_dict, total).
+    Returns:
+      train_step(state, batch) -> metrics: the model forward in train mode
+      (BatchNorm statistics move), the loss, its gradients, clipping, the
+      optimizer update and the EMA, `state.step` + 1. `batch` holds
+      `RPN_BATCH_KEYS` as tensors on the model's device; the metrics are
+      the loss dict, "total_loss" and "seg_accuracy", 0-d device tensors.
+    """
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        model = state.model
+        model.train()
+        params: List[torch.Tensor] = state.optimizer.params
+        with torch.enable_grad():
+            preds = model(*(batch.get(k) for k in RPN_BATCH_KEYS), generators=state.generators)
+            loss_dict, total = loss_fn(preds)
+            grads = torch.autograd.grad(total, params)
+        state.optimizer.step(grads)
+        state.step += 1
+        metrics = {k: v.detach() for k, v in loss_dict.items()}
+        metrics["total_loss"] = total.detach()
+        metrics["seg_accuracy"] = preds["seg_accuracy"].detach()
+        return metrics
+
+    return train_step

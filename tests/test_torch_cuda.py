@@ -535,3 +535,166 @@ def test_crop_gather_kernel_refuses_ragged_rows(cuda):
     idx = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         crop_gather(src, idx, torch.zeros(1, dtype=torch.int32, device=cuda))
+
+
+# The training path on the card: rpn_unittest on the fixture frames, batch
+# 2, dropout and path drop off. Tolerances as tests/test_torch_training.py:
+# losses rtol 1e-4 / atol 1e-5; gradients and parameters after a step rtol
+# 1e-3 / atol 1e-5. Adam moves an element by about the learning rate times
+# the sign of its gradient, so where the card's and the CPU's gradients (the
+# step's own, read back from Adam's first moment; a second backward on the
+# card need not repeat the step's rounding, since its scatter-adds use
+# atomics) agree only within the absolute part of that tolerance (rounding noise of
+# two summation orders: the biases that a training BatchNorm follows, whose
+# gradient is 0 in exact arithmetic, and elements of a tiny gradient) the
+# updated element is held within 2 x lr more; every other one at 1e-3 / 1e-5.
+
+
+def _train_setup(pc_sample_pts=None):
+    from heterofusionrcnn_torch.experiments import common
+    from heterofusionrcnn_torch.models.extractors.layers import init_weights
+
+    cfg = common.resolve_config("rpn_unittest")
+    lc = cfg.model_config.layers_config
+    for fc in lc.rpn_fc_layers + lc.pc_pointcnn.fc_layers:
+        fc.dropout_rate = 0.0
+    cfg.model_config.path_drop_probabilities = [1.0, 1.0]
+    if pc_sample_pts:
+        cfg.model_config.input_config.pc_sample_pts = pc_sample_pts
+    dataset = common.build_dataset(cfg, "train")
+    dataset.seed(0)
+    batch = common.make_batch_fn(cfg, dataset, 2)()
+    model, loss_fn = common.build_model(cfg, dataset, "train")
+    return cfg, init_weights(model, 0), loss_fn, {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _train_step(cfg, model, loss_fn, batch, device):
+    """One train step from a fresh Adam: the metrics, the module's state
+    dict, and the step's own clipped gradient by name (Adam's first moment
+    after one step from zero is (1 - b1) times it)."""
+    from heterofusionrcnn_torch.runtime.optimizer import ADAM_B1, build_optimizer
+    from heterofusionrcnn_torch.runtime.train_state import TrainState, make_rpn_train_step
+
+    model = model.to(device)
+    opt = build_optimizer(model, cfg.train_config.optimizer, 1, cfg.train_config.grad_clip_norm)
+    metrics = make_rpn_train_step(loss_fn)(TrainState.create(model, opt),
+                                           {k: v.to(device) for k, v in batch.items()})
+    grads = {n: (mu / (1 - ADAM_B1)).cpu() for n, mu in opt.state_dict()["state"]["mu"].items()}
+    return {k: float(v) for k, v in metrics.items()}, model.state_dict(), grads
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step (forward in training, loss, backward, clip, Adam,
+    BatchNorm statistics) on the card and on the CPU from the same weights:
+    the losses, the step's gradients and the updated state."""
+    import copy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    cfg, model, loss_fn, batch = _train_setup()
+    want_l, want, want_g = _train_step(cfg, copy.deepcopy(model), loss_fn, batch, "cpu")
+    got_l, got, got_g = _train_step(cfg, model, loss_fn, batch, cuda)
+    for key, val in want_l.items():
+        assert got_l[key] == pytest.approx(val, rel=1e-4, abs=1e-5), key
+    for name, g in want_g.items():
+        torch.testing.assert_close(got_g[name], g, rtol=1e-3, atol=1e-5, msg=name)
+    lr = cfg.train_config.optimizer.initial_learning_rate
+    for name, val in want.items():
+        if not val.is_floating_point():
+            continue
+        tol = 1e-5 + 1e-3 * val.abs()
+        if name in want_g:
+            tol = tol + 2 * lr * ((got_g[name] - want_g[name]).abs() > 1e-3 * want_g[name].abs())
+        assert bool(((got[name].cpu() - val).abs() <= tol).all()), (
+            name, float(((got[name].cpu() - val).abs() - tol).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,image", [(5, False), (16, False), (2, True)])
+def test_batchnorm_training_on_card_matches_cpu(cuda, n, image):
+    """Train-mode BatchNorm (flax's biased variance, momentum 0.99): output,
+    gradients and running statistics on the card as on the CPU."""
+    from heterofusionrcnn_torch.models.extractors.layers import BatchNorm, BatchNorm2d
+
+    rng = np.random.default_rng(n)
+    c = 6
+    x = torch.from_numpy((rng.standard_normal((n, c, 3, 3) if image else (n, c)) * 2 + 1)
+                         .astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    out = []
+    for device in ("cpu", cuda):
+        bn = (BatchNorm2d(c) if image else BatchNorm(c)).to(device).train()
+        with torch.no_grad():
+            bn.weight.copy_(scale)
+            bn.running_var.fill_(0.7)
+        xt = x.detach().to(device).requires_grad_()
+        y = bn(xt)
+        (y * y).sum().backward()
+        out.append([t.detach().cpu() for t in (y, xt.grad, bn.weight.grad, bn.running_mean,
+                                               bn.running_var)])
+    for got, want in zip(out[1], out[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_train_step_kernel_calls_match_plain(cuda, monkeypatch):
+    """Every FPS and KNN call of one train step (4096 points, so both KNN
+    arms run) bit for bit against the plain version, and the step launches
+    no fused XConv and no NMS."""
+    from heterofusionrcnn_torch.models.extractors import pointcnn
+    from heterofusionrcnn_torch.ops.nms import NMS_KERNEL
+    from heterofusionrcnn_torch.ops.xconv import XCONV_KERNEL
+
+    calls = {"knn": [], "fps": []}
+
+    def recorder(name, fn):
+        def rec(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return rec
+
+    monkeypatch.setattr(pointcnn, "knn_point", recorder("knn", pointcnn.knn_point))
+    monkeypatch.setattr(pointcnn, "farthest_point_sample",
+                        recorder("fps", pointcnn.farthest_point_sample))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, model, loss_fn, batch = _train_setup(pc_sample_pts=4096)
+    before = (XCONV_KERNEL.launches, NMS_KERNEL.launches)
+    _train_step(cfg, model, loss_fn, batch, cuda)
+    assert (XCONV_KERNEL.launches, NMS_KERNEL.launches) == before
+    arms = {grouping.knn_arm(xyz.shape[1], qrs.shape[1]) for _, xyz, qrs in calls["knn"]}
+    assert arms == {"brute", "sorted"} and calls["fps"]
+    for k, xyz, qrs in calls["knn"]:
+        for got, want in zip(knn_point(k, xyz, qrs), knn_point_plain(k, xyz, qrs)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for xyz, npoint in calls["fps"]:
+        torch.testing.assert_close(farthest_point_sample(xyz, npoint),
+                                   farthest_point_sample_plain(xyz, npoint), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_xconv_eval_with_grad_launches_or_raises(cuda):
+    """An eval-mode XConv on the card launches the fused kernel under
+    no_grad and where autograd has nothing to differentiate, and raises,
+    launching nothing, where autograd would differentiate its parameters:
+    it never leaves the kernel for the layer-by-layer path."""
+    from heterofusionrcnn_torch.models.extractors.pointcnn import XConv
+    from heterofusionrcnn_torch.ops.xconv import XCONV_KERNEL
+
+    rng = np.random.default_rng(5)
+    pts = torch.from_numpy(rng.standard_normal((2, 256, 3)).astype(np.float32)).to(cuda)
+    fts = torch.from_numpy(rng.standard_normal((2, 256, 8)).astype(np.float32)).to(cuda)
+    qrs = pts[:, :64]
+    mod = XConv(8, 1, 64, 32, 8, 2).to(cuda).eval()
+    before = XCONV_KERNEL.launches
+    with torch.no_grad():
+        mod(pts, fts, qrs)
+    assert XCONV_KERNEL.launches == before + 1
+    with pytest.raises(RuntimeError, match="no backward"):
+        mod(pts, fts, qrs)
+    assert XCONV_KERNEL.launches == before + 1
+    mod.requires_grad_(False)
+    mod(pts, fts, qrs)
+    assert XCONV_KERNEL.launches == before + 2

@@ -92,7 +92,7 @@ def test_run_inference_cli_matches_jax(tmp_path, monkeypatch):
     batches = [dataset.next_batch(1, **kw)[0] for _ in FRAMES]
 
     fused, rpn_v, rcnn_v = _jax_fused(root, batches[0])
-    det = common.build_model(rpn_cfg, rcnn_cfg, dataset)
+    det = common.build_detector(rpn_cfg, rcnn_cfg, dataset)
     CheckpointManager(str(tmp_path / "rpn_ckpt")).save(3, load_flax_variables(det.rpn, rpn_v))
     CheckpointManager(str(tmp_path / "rcnn_ckpt")).save(7, load_flax_variables(det.rcnn, rcnn_v))
 
