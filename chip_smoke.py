@@ -88,6 +88,30 @@
    within 1e-3 / 1e-5 as the tests hold them), and 8 full-width steps on
    one repeated batch, which must lower the total loss (the curve is
    printed).
+9. Two-stage training (`two_stage_phase`): `python -m
+   heterofusionrcnn_torch.experiments.run_evaluation` in process with
+   `--save_rpn_feature --for_rcnn_train` on the fixture train split, from
+   step 8's full-width RPN checkpoint, counted, the first frame's kernel
+   calls recorded: every labelled frame's proposals, IoU table and feature
+   file (rpn_fts_channels + 5 = 293 wide), all finite, the frame's NMS
+   calls bit-exact and fused XConv and split-epilogue calls within the
+   gate. Then `run_training` in process with `rcnn_multiclass` at full
+   width (batch 1, 64 RoIs of 512 points, `--warm_start_from` the RPN
+   checkpoint, the three handoff directories) into --out/chip_smoke_rcnn:
+   6 steps, then a resume to 8, each step counted and timed as in step 8;
+   each must launch KNN and FPS and no fused XConv and no NMS, at least
+   one must hold a positive RoI (rcnn_reg_loss > 0), and no cropped
+   stage-1 feature may carry autograd history. Every KNN and FPS
+   call of one recorded step bit-exact, timed and bounded (rows
+   knn_rcnn_train, fps_rcnn_train), one step profiled (device time by
+   kernel name, busy share of the median step), one `rcnn_unittest` step
+   on the card against the CPU (batch 2 of 16 RoIs from a synthetic
+   handoff, tests/rcnn_fixtures.py, with a positive RoI; losses within
+   1e-4, gradients as `grads_agree` holds them, parameters within 1e-3 /
+   1e-5 widened by 2 x lr where the gradients agree only within the
+   absolute part), and 8
+   full-width steps on one repeated batch with a positive RoI (the profiled
+   step's batch), which must lower the total loss.
 
 Prints a {"kernels": [...]} JSON line, then the result as its last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -948,22 +972,22 @@ def patched(module, name, value):
 
 
 class StepMonitor:
-    """Stands in for `make_rpn_train_step` where the training CLI builds
-    its step: each step between zeroing every launch count and reading it,
-    timed on the host clock between two device synchronisations, its four
+    """Stands in for a train-step factory (`make_rpn_train_step` or
+    `make_rcnn_train_step`, `make_step`) where the training CLI builds its
+    step: each step between zeroing every launch count and reading it,
+    timed on the host clock between two device synchronisations, its
     losses kept, and the KNN and FPS calls of one step recorded."""
 
-    def __init__(self, kernels):
+    def __init__(self, kernels, make_step):
         self.kernels = kernels
+        self.make_step = make_step
         self.steps = []
         self.calls = None
 
     def factory(self, loss_fn):
         import torch
 
-        from heterofusionrcnn_torch.runtime.train_state import make_rpn_train_step
-
-        step = make_rpn_train_step(loss_fn)
+        step = self.make_step(loss_fn)
 
         def monitored(state, batch):
             record = len(self.steps) == TRAIN_RECORDED_STEP
@@ -996,12 +1020,13 @@ def train_batch(cfg, device, seed=SEED):
 
     dataset = common.build_dataset(cfg, "train", "train")
     dataset.seed(seed)
-    return batch_to_device(common.make_batch_fn(cfg, dataset, 2)(), device), dataset
+    return batch_to_device(common.make_batch_fn(cfg, dataset, "rpn", 2)(), device), dataset
 
 
 def no_dropout(cfg):
     lc = cfg.model_config.layers_config
-    for fc in lc.rpn_fc_layers + lc.pc_pointcnn.fc_layers:
+    for fc in (lc.rpn_fc_layers + lc.pc_pointcnn.fc_layers + lc.rcnn_mlp_layers
+               + lc.rcnn_fc_layers + lc.rcnn_pc_pointcnn.fc_layers):
         fc.dropout_rate = 0.0
     cfg.model_config.path_drop_probabilities = [1.0, 1.0]
     return cfg
@@ -1081,12 +1106,13 @@ def val_check(state, cfg, batch, kernels):
     return result
 
 
-def params_agree(got, want, grads_got, grads_want, lr):
+def params_agree(got, want, grads_got, grads_want, lr, grads_close=None):
     """State dict `got` (card) against `want` (CPU) after one Adam step,
     with the gradients of that step on each side. Returns the names of the
-    gradients outside PARAM_TOL and of the tensors outside it after the
-    step, and {name: count} of the elements whose two gradients agree only
-    within PARAM_TOL's atol, allowed 2 x lr more after the step."""
+    gradients outside PARAM_TOL (or outside `grads_close(got, want, name)`)
+    and of the tensors outside PARAM_TOL after the step, and {name: count}
+    of the elements whose two gradients agree only within the absolute
+    part of the gradient tolerance, allowed 2 x lr more after the step."""
     bad, noise = [], {}
     for name, w in want.items():
         g = got[name].cpu()
@@ -1095,7 +1121,9 @@ def params_agree(got, want, grads_got, grads_want, lr):
         tol = PARAM_TOL["atol"] + PARAM_TOL["rtol"] * w.abs()
         if name in grads_want:
             gw, gg = grads_want[name], grads_got[name].cpu()
-            if not bool(((gg - gw).abs() <= PARAM_TOL["atol"] + PARAM_TOL["rtol"] * gw.abs()).all()):
+            close = (grads_close(gg, gw, name) if grads_close else
+                     bool(((gg - gw).abs() <= PARAM_TOL["atol"] + PARAM_TOL["rtol"] * gw.abs()).all()))
+            if not close:
                 bad.append("gradient of " + name)
             unresolved = (gg - gw).abs() > PARAM_TOL["rtol"] * gw.abs()
             if unresolved.any():
@@ -1106,20 +1134,18 @@ def params_agree(got, want, grads_got, grads_want, lr):
     return bad, noise
 
 
-def small_width_train_agrees(seed):
-    """One train step at `rpn_unittest` width on the card and on the CPU
-    (plain versions) from the same weights, dropout and path drop off:
+def step_agrees(cfg, batch, dataset, make_step, seed, grads_close=None):
+    """One train step (`make_step`) of `cfg`'s model on the card and on the
+    CPU (plain versions) from the same weights and host batch `batch`:
     losses within LOSS_TOL, the step's gradients, updated parameters and
-    statistics within PARAM_TOL (`params_agree`)."""
+    statistics as `params_agree` holds them."""
     import copy
 
     from heterofusionrcnn_torch.experiments import common
     from heterofusionrcnn_torch.models.extractors.layers import init_weights
     from heterofusionrcnn_torch.runtime.optimizer import ADAM_B1, build_optimizer
-    from heterofusionrcnn_torch.runtime.train_state import TrainState, make_rpn_train_step
+    from heterofusionrcnn_torch.runtime.train_state import TrainState
 
-    cfg = no_dropout(common.resolve_config("rpn_unittest", KITTI_DIR))
-    batch, dataset = train_batch(cfg, "cpu", seed)
     model, loss_fn = common.build_model(cfg, dataset, "train")
     init_weights(model, seed)
     results = []
@@ -1127,7 +1153,7 @@ def small_width_train_agrees(seed):
         m = copy.deepcopy(model).to(device)
         state = TrainState.create(m, build_optimizer(m, cfg.train_config.optimizer, 1,
                                                      cfg.train_config.grad_clip_norm), seed)
-        metrics = make_rpn_train_step(loss_fn)(state, {k: v.to(device) for k, v in batch.items()})
+        metrics = make_step(loss_fn)(state, {k: v.to(device) for k, v in batch.items()})
         # The step's own clipped gradient: Adam's first moment after one
         # step from zero is (1 - b1) times it. A second backward on the card
         # need not repeat the step's rounding (its scatter-adds use atomics).
@@ -1138,30 +1164,39 @@ def small_width_train_agrees(seed):
     losses_ok = all(abs(got_l[k] - want_l[k]) <= LOSS_TOL["atol"] + LOSS_TOL["rtol"] * abs(want_l[k])
                     for k in want_l)
     bad, noise = params_agree(got_sd, want_sd, got_g, want_g,
-                              cfg.train_config.optimizer.initial_learning_rate)
+                              cfg.train_config.optimizer.initial_learning_rate, grads_close)
     total = sum(p.numel() for p in model.parameters())
     return losses_ok and not bad, dict(cpu=want_l, cuda=got_l, outside=bad,
                                        widened_share=sum(noise.values()) / total,
                                        widened_elements=noise)
 
 
-def loss_curve(steps=CURVE_STEPS):
-    """`steps` train steps of the full-width RPN on one repeated batch,
-    dropout and path drop off: the total loss of each."""
+def small_width_train_agrees(seed):
+    """One RPN train step at `rpn_unittest` width on the card and on the CPU,
+    dropout and path drop off (`step_agrees`)."""
+    from heterofusionrcnn_torch.experiments import common
+    from heterofusionrcnn_torch.runtime.train_state import make_rpn_train_step
+
+    cfg = no_dropout(common.resolve_config("rpn_unittest", KITTI_DIR))
+    batch, dataset = train_batch(cfg, "cpu", seed)
+    return step_agrees(cfg, batch, dataset, make_rpn_train_step, seed)
+
+
+def loss_curve(cfg, batch, dataset, make_step, steps=CURVE_STEPS):
+    """`steps` train steps (`make_step`) of `cfg`'s model (dropout and path
+    drop off) on one repeated device batch: the total loss of each."""
     import torch
 
     from heterofusionrcnn_torch.experiments import common
     from heterofusionrcnn_torch.models.extractors.layers import init_weights
     from heterofusionrcnn_torch.runtime.optimizer import build_optimizer
-    from heterofusionrcnn_torch.runtime.train_state import TrainState, make_rpn_train_step
+    from heterofusionrcnn_torch.runtime.train_state import TrainState
 
-    cfg = no_dropout(common.resolve_config("rpn_multiclass", KITTI_DIR))
-    batch, dataset = train_batch(cfg, "cuda")
-    model, loss_fn = common.build_model(cfg, dataset, "train")
+    model, loss_fn = common.build_model(no_dropout(cfg), dataset, "train")
     model = init_weights(model, SEED).cuda()
     state = TrainState.create(model, build_optimizer(model, cfg.train_config.optimizer, 1,
                                                      cfg.train_config.grad_clip_norm), SEED)
-    step = make_rpn_train_step(loss_fn)
+    step = make_step(loss_fn)
     curve = [float(step(state, batch)["total_loss"]) for _ in range(steps)]
     del state, model
     torch.cuda.empty_cache()
@@ -1190,7 +1225,7 @@ def training_phase(kernels, out_root):
     save_config(cfg, cfg_path)
     argv = ["--pipeline_config", cfg_path, "--data_split", "train", "--output_root", root,
             "--seed", str(SEED)]
-    monitor = StepMonitor(kernels)
+    monitor = StepMonitor(kernels, make_rpn_train_step)
     torch.cuda.reset_peak_memory_stats()
     with torch.enable_grad(), patched(run_training, "make_rpn_train_step", monitor.factory):
         run_training.main(argv + ["--max_iterations", str(TRAIN_STEPS)])
@@ -1242,11 +1277,252 @@ def training_phase(kernels, out_root):
           f"within 1e-5 absolute ({detail['widened_share']:.6f} of the parameters)", flush=True)
     if not agree:
         raise AssertionError(f"small-width train step: card and CPU disagree: {detail}")
-    curve = loss_curve()
+    cfg = common.resolve_config("rpn_multiclass", KITTI_DIR)
+    batch, dataset = train_batch(cfg, "cuda")
+    curve = loss_curve(cfg, batch, dataset, make_rpn_train_step)
+    del batch
     report["loss_curve"] = curve
     print("loss curve (one repeated batch): " + " ".join(f"{v:.4f}" for v in curve), flush=True)
     if not curve[-1] < curve[0]:
         raise AssertionError(f"{CURVE_STEPS} steps on one batch did not lower the loss: {curve}")
+    return report, rows
+
+
+# Step 9, two-stage training: the RPN evaluator writes the handoff files
+# from step 8's full-width checkpoint, then `rcnn_multiclass` trains from
+# them for RCNN_STEPS steps and a resume to RCNN_RESUMED_TO (a checkpoint
+# every TRAIN_INTERVAL), warm-started from the RPN.
+RCNN_STEPS, RCNN_RESUMED_TO = 6, 8
+RCNN_KERNELS = ("knn", "fps")  # launched by every RCNN train step (sets below 4096: brute arm)
+
+
+def handoff_phase(kernels, rpn_root):
+    """`run_evaluation --save_rpn_feature --for_rcnn_train` in process on
+    the fixture train split from the latest checkpoint under `rpn_root`,
+    counted, with the first frame's kernel calls recorded: every labelled
+    frame's three files, features of the RCNN's width, finite; the first
+    frame's NMS calls bit-exact and fused XConv and split-epilogue calls
+    within the gate. Returns the report and the three directories."""
+    import numpy as np
+    import torch
+
+    from heterofusionrcnn_torch.datasets.kitti import labels as label_io
+    from heterofusionrcnn_torch.experiments import common, run_evaluation
+    from heterofusionrcnn_torch.models.rpn import rpn_fts_channels
+    from heterofusionrcnn_torch.runtime import evaluator
+
+    first = {}
+    apply = evaluator.RpnEvaluator._apply
+
+    def recorded_apply(self, batch):
+        if first:
+            return apply(self, batch)
+        with recording(("fused_xconv", "xconv_split_epilogue", "oriented_nms")) as calls:
+            out = apply(self, batch)
+            torch.cuda.synchronize()
+        first.update(calls)
+        return out
+
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    with patched(evaluator.RpnEvaluator, "_apply", recorded_apply):
+        summary, = run_evaluation.main([
+            "--pipeline_config", "rpn_multiclass", "--dataset_dir", KITTI_DIR,
+            "--output_root", rpn_root, "--data_split", "train", "--save_rpn_feature",
+            "--for_rcnn_train"])
+    torch.cuda.synchronize()
+    report = dict(s=time.perf_counter() - t0, step=summary["global_step"],
+                  launches={k: kern.launches for k, kern in kernels.items()},
+                  recall_50=summary["recall_50"], avg_iou3d=summary["avg_iou3d"])
+    pred = os.path.join(rpn_root, "rpn_multiclass", "predictions")
+    dirs = [os.path.join(pred, d, "train", str(summary["global_step"]))
+            for d in ("proposals_and_scores", "proposals_iou", "rpn_feature")]
+    cfg = common.resolve_config("rcnn_multiclass", KITTI_DIR)
+    dataset = common.build_dataset(cfg, "val", "train")
+    labelled = [s.name for s in dataset.sample_list if label_io.filter_labels(
+        label_io.read_labels(dataset.label_dir, int(s.name)), dataset.classes)]
+    width = rpn_fts_channels(cfg.model_config) + 5
+    for name in labelled:
+        props = np.loadtxt(os.path.join(dirs[0], name + ".txt"), ndmin=2)
+        ious = np.loadtxt(os.path.join(dirs[1], name + ".txt"), ndmin=2)
+        feats = np.load(os.path.join(dirs[2], name + ".npy"))
+        if props.shape[1] != 8 or len(ious) != len(props) or feats.shape[1] != width:
+            raise AssertionError(f"handoff of {name}: {props.shape} {ious.shape} {feats.shape}")
+        if not all(np.isfinite(a).all() for a in (props, ious, feats)):
+            raise AssertionError(f"handoff of {name}: non-finite values")
+    frames = len(labelled)
+    per_frame = {k: report["launches"][k] / frames for k in ("xconv", "nms", "knn", "fps")}
+    if not all(per_frame.values()):
+        raise AssertionError(f"the RPN evaluation did not launch every kernel: {report['launches']}")
+    err = max(check_xconv(*a) for a, _ in first["fused_xconv"])
+    for a, _ in first["xconv_split_epilogue"]:
+        err = max(err, check_epilogue(*a))
+    for a, kw in first["oriented_nms"]:
+        check_index_exact("nms", a, kw)
+    report.update(frames=frames, feature_width=width, xconv_max_abs_err=err,
+                  first_frame_calls={k: len(v) for k, v in first.items()})
+    print(f"handoff: {frames} frames, features {width} wide, {report['s']:.1f} s; launches "
+          f"{report['launches']}; first frame's {len(first['fused_xconv'])} XConv (max error "
+          f"{err:.3g}) and {len(first['oriented_nms'])} NMS calls held", flush=True)
+    return report, dirs
+
+
+def rcnn_small_width_agrees(seed, out_root):
+    """One RCNN train step at `rcnn_unittest` width (batch 2 of 16 RoIs from
+    a synthetic handoff over the fixture frames, dropout and path drop off)
+    on the card and on the CPU (`step_agrees`, the gradients held by
+    tests/rcnn_fixtures.py `grads_agree`)."""
+    from heterofusionrcnn_torch.experiments import common
+    from tests.rcnn_fixtures import grads_agree, write_handoff
+
+    cfg = no_dropout(common.resolve_config("rcnn_unittest", KITTI_DIR))
+    dataset = common.build_dataset(cfg, "train", "train")
+    dataset.seed(seed)
+    root = os.path.join(out_root, "chip_smoke_rcnn_unittest")
+    shutil.rmtree(root, ignore_errors=True)
+    dataset.proposal_dir, dataset.proposal_iou_dir, dataset.rpn_feature_dir = write_handoff(
+        dataset, root)
+    from heterofusionrcnn_torch.runtime.trainer import batch_to_device
+
+    batch = batch_to_device(common.make_batch_fn(cfg, dataset, "rcnn", 2)(), "cpu")
+    agree, detail = step_agrees(cfg, batch, dataset, common.make_rcnn_train_step, seed,
+                                grads_agree)
+    if not detail["cpu"]["rcnn_reg_loss"] > 0:  # else the bin and residual heads go unchecked
+        raise AssertionError(f"rcnn_unittest step without a positive RoI: {detail['cpu']}")
+    return agree, detail
+
+
+def two_stage_phase(kernels, out_root):
+    """Step 9 (module docstring): the handoff, the RCNN training CLI at full
+    width with its checks, the kernel rows of one recorded RCNN step, one
+    profiled step, the small-width card/CPU step and the loss curve."""
+    import numpy as np
+    import torch
+
+    from heterofusionrcnn_torch.configs.config import save_config
+    from heterofusionrcnn_torch.experiments import common, run_training
+    from heterofusionrcnn_torch.models import rcnn as rcnn_module
+    from heterofusionrcnn_torch.runtime.checkpoint import CheckpointManager
+    from heterofusionrcnn_torch.runtime.trainer import batch_to_device
+
+    rpn_root = os.path.join(out_root, "chip_smoke_train")
+    report = {}
+    report["handoff"], dirs = handoff_phase(kernels, rpn_root)
+
+    root = os.path.join(out_root, "chip_smoke_rcnn")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = common.resolve_config("rcnn_multiclass", KITTI_DIR)
+    cfg.train_config.checkpoint_interval = TRAIN_INTERVAL
+    cfg_path = os.path.join(root, "rcnn_multiclass.json")
+    save_config(cfg, cfg_path)
+    argv = ["--pipeline_config", cfg_path, "--data_split", "train", "--output_root", root,
+            "--seed", str(SEED), "--warm_start_from",
+            os.path.join(rpn_root, "rpn_multiclass", "checkpoints"), "--proposal_dir", dirs[0],
+            "--proposal_iou_dir", dirs[1], "--rpn_feature_dir", dirs[2]]
+    # No gradient may reach the stage-1 features: every crop's features
+    # must come out of the crop without autograd history.
+    crop_grads = []
+    crop = rcnn_module.pc_crop_and_sample
+
+    def checked_crop(*args, **kwargs):
+        out = crop(*args, **kwargs)
+        crop_grads.append(out[1].requires_grad)
+        return out
+
+    monitor = StepMonitor(kernels, common.make_rcnn_train_step)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad(), patched(run_training, "make_rcnn_train_step", monitor.factory), \
+            patched(rcnn_module, "pc_crop_and_sample", checked_crop):
+        run_training.main(argv + ["--max_iterations", str(RCNN_STEPS)])
+        state = run_training.main(argv + ["--max_iterations", str(RCNN_RESUMED_TO)])
+    report.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, steps=monitor.steps)
+    if len(crop_grads) != RCNN_RESUMED_TO or any(crop_grads):
+        raise AssertionError(f"cropped stage-1 features that autograd tracks: {crop_grads}")
+    starts = [s["start"] for s in monitor.steps]
+    if starts != list(range(RCNN_RESUMED_TO)) or state.step != RCNN_RESUMED_TO:
+        raise AssertionError(f"RCNN steps started at {starts}, ended at {state.step}")
+    ckpts = CheckpointManager(os.path.join(root, "rcnn_multiclass", "checkpoints")).all_steps()
+    if ckpts != [3, 6, 8]:
+        raise AssertionError(f"RCNN checkpoints {ckpts}")
+    for s in monitor.steps:
+        if sorted(s["losses"]) != ["rcnn_bin_cls_loss", "rcnn_cls_loss", "rcnn_reg_loss",
+                                   "total_loss"]:
+            raise AssertionError(f"RCNN step metrics {sorted(s['losses'])}")
+        if not all(np.isfinite(v) for v in s["losses"].values()):
+            raise AssertionError(f"non-finite RCNN losses at step {s['start'] + 1}: {s['losses']}")
+        launched = s["launches"]
+        if not all(launched[k] for k in RCNN_KERNELS) or launched["xconv"] or launched["nms"]:
+            raise AssertionError(f"RCNN train step {s['start'] + 1} launches {launched}")
+    positive = sum(s["losses"]["rcnn_reg_loss"] > 0 for s in monitor.steps)
+    if not positive:  # else no step trained the bin and residual heads
+        raise AssertionError("no RCNN train step held a positive RoI")
+    report["steps_with_positive_rois"] = positive
+    recorded = monitor.steps[TRAIN_RECORDED_STEP]["launches"]
+    calls = monitor.calls
+    if expected_launches(calls, ("knn", "knn_prep", "fps")) != {
+            k: recorded[k] for k in ("knn", "knn_prep", "fps")}:
+        raise AssertionError(f"recorded RCNN step calls do not match its launches {recorded}")
+    for name in RCNN_KERNELS:
+        for a, kw in calls[KERNEL_OPS[name]]:
+            check_index_exact(name, a, kw)
+    step_ms = [s["ms"] for s in monitor.steps]
+    report["median_ms_after_first"] = float(np.median(step_ms[1:]))
+    print("RCNN train steps ms (batch 1, 64 RoIs): " + " ".join(f"{t:.2f}" for t in step_ms)
+          + f"; peak device memory {report['peak_mem_gb']:.2f} GB; {positive} steps with "
+          "a positive RoI", flush=True)
+
+    rows = {}
+    with torch.no_grad():
+        knn_rows(rows, calls, REPS, "_rcnn_train")
+        fps_row(rows, calls, REPS, "_rcnn_train", sweeps=False)
+    if rows["knn_prep_rcnn_train"]["calls"] or recorded["knn_prep"]:
+        raise AssertionError("an RCNN KNN call took the sorted arm")
+    del rows["knn_prep_rcnn_train"]  # not on this path: every set is below 4096 points
+    for name in RCNN_KERNELS:
+        rows[name + "_rcnn_train"]["launches"] = recorded[name]
+    finish_rows(rows)
+    del calls, monitor.calls
+
+    dataset = common.build_dataset(cfg, "train", "train")
+    dataset.seed(SEED)
+    dataset.proposal_dir, dataset.proposal_iou_dir, dataset.rpn_feature_dir = dirs
+    # The profiled and the loss-curve batch: the first with a positive RoI,
+    # so that the curve trains the bin and residual heads too.
+    next_batch = common.make_batch_fn(cfg, dataset, "rcnn", 1)
+    reg_lo = cfg.dataset_config.mini_batch_config.reg_iou_3d_thresholds.pos_iou_lo
+    for _ in range(len(dataset.sample_list)):
+        host = next_batch()
+        if (host["rpn_iou"] > reg_lo).any():
+            break
+    else:
+        raise AssertionError("no RCNN batch of the fixture frames holds a positive RoI")
+    batch = batch_to_device(host, "cuda")
+    step = common.make_rcnn_train_step(lambda p: rcnn_module.rcnn_loss(p, cfg.model_config))
+    report["profile_step"] = profile_forward(lambda: step(state, batch), (), top=25)
+    report["device_busy_share"] = (report["profile_step"]["device_busy_ms"]
+                                   / report["median_ms_after_first"])
+    print(f"RCNN step profile: {report['profile_step']['device_busy_ms']:.2f} ms of device time, "
+          f"busy share {report['device_busy_share']:.3f} of the median step", flush=True)
+    del state
+    torch.cuda.empty_cache()
+
+    agree, detail = rcnn_small_width_agrees(SEED, out_root)
+    report["small_width_train"] = dict(agrees=agree, **detail)
+    print(f"rcnn_unittest step, card against CPU: losses {detail['cuda']} / {detail['cpu']}; "
+          f"{sum(detail['widened_elements'].values())} elements in "
+          f"{len(detail['widened_elements'])} tensors widened "
+          f"({detail['widened_share']:.6f} of the parameters)", flush=True)
+    if not agree:
+        raise AssertionError(f"rcnn_unittest train step: card and CPU disagree: {detail}")
+    curve = loss_curve(cfg, batch, dataset, common.make_rcnn_train_step)
+    report["loss_curve"] = curve
+    print("RCNN loss curve (one repeated batch): " + " ".join(f"{v:.4f}" for v in curve),
+          flush=True)
+    if not curve[-1] < curve[0]:
+        raise AssertionError(f"{CURVE_STEPS} RCNN steps on one batch did not lower the loss: "
+                             f"{curve}")
     return report, rows
 
 
@@ -1364,6 +1640,8 @@ def main(argv=None) -> int:
     report["kitti"] = kitti_phase(kernels, os.path.join(args.out, "chip_smoke_kitti"))
     report["training"], train_rows = training_phase(kernels, args.out)
     rows.update(train_rows)
+    report["two_stage_training"], rcnn_rows = two_stage_phase(kernels, args.out)
+    rows.update(rcnn_rows)
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

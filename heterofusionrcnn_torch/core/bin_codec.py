@@ -1,6 +1,6 @@
 """Bin-based 3D box codec (PyTorch port of
-heterofusionrcnn_tpu/core/bin_codec.py: `decode` and the RPN's
-`encode_rpn`).
+heterofusionrcnn_tpu/core/bin_codec.py: `decode`, the RPN's
+`encode_rpn` and the RCNN's `encode_rcnn`).
 
 A box is regressed relative to a reference point (an RPN point, or an RCNN
 proposal centre with its heading): x/z offsets as a bin over [-S, S] of
@@ -11,6 +11,7 @@ y as a direct residual and the size relative to the class mean size.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -112,4 +113,33 @@ def encode_rpn(ref_pts: torch.Tensor, boxes_3d: torch.Tensor, mean_sizes: torch.
     dz = boxes_3d[..., 2] - ref_pts[..., 2]
     dsize = boxes_3d[..., 3:6] - mean_sizes
     dtheta_shift = torch.clamp(boxes_3d[..., 6] + R, 0.0, 2.0 * R - _EPS_BIN)
+    return _encode_common(dx, dz, dtheta_shift, dy, dsize, mean_sizes, S, DELTA, DELTA_THETA, K)
+
+
+def encode_rcnn(ref_pts: torch.Tensor, ref_theta: torch.Tensor, boxes_3d: torch.Tensor,
+                mean_sizes: torch.Tensor, S, DELTA, R: float, DELTA_THETA: float, K: int):
+    """box_3d -> bin representation relative to a proposal (the reference's
+    tf_encode ndims == 2 branch): the offsets rotated into the proposal's
+    frame, the heading delta wrapped into [0, 2 pi) and turned by pi where
+    the box points backwards, then shifted into [eps, 2R - eps].
+
+    Args:
+      ref_pts: (..., 3) proposal centres; ref_theta: (...,) their headings;
+      boxes_3d: (..., 7); mean_sizes: (..., 3).
+    Returns:
+      as `encode_rpn`.
+    """
+    dx = boxes_3d[..., 0] - ref_pts[..., 0]
+    dy = boxes_3d[..., 1] - ref_pts[..., 1]
+    dz = boxes_3d[..., 2] - ref_pts[..., 2]
+    c, s = torch.cos(ref_theta), torch.sin(ref_theta)
+    dx, dz = c * dx - s * dz, s * dx + c * dz
+    dsize = boxes_3d[..., 3:6] - mean_sizes
+
+    two_pi = 2.0 * math.pi
+    dtheta = torch.remainder(boxes_3d[..., 6] - torch.remainder(ref_theta, two_pi), two_pi)
+    dtheta = torch.where((dtheta > 0.5 * math.pi) & (dtheta < 1.5 * math.pi),
+                         torch.remainder(dtheta + math.pi, two_pi), dtheta)
+    dtheta_shift = torch.remainder(dtheta + 0.5 * math.pi, two_pi)
+    dtheta_shift = torch.clamp(dtheta_shift - R, _EPS_BIN, 2.0 * R - _EPS_BIN)
     return _encode_common(dx, dz, dtheta_shift, dy, dsize, mean_sizes, S, DELTA, DELTA_THETA, K)

@@ -2,7 +2,8 @@
 
 Each loss is the elementwise loss times a scalar or classwise weight,
 reduced over the last axis only; the models sum and normalise (by the
-foreground count, with a guard against zero) at the call site.
+foreground count, with a guard against zero) at the call site, the bin
+heads' through `bin_losses`.
 """
 
 from __future__ import annotations
@@ -49,3 +50,23 @@ def one_hot_smooth(labels: torch.Tensor, num_classes: int, epsilon: float = 0.00
     off = epsilon / (num_classes - 1)
     on = 1.0 - epsilon
     return one_hot(labels, num_classes) * (on - off) + off
+
+
+def bin_losses(cls_preds, cls_gts, reg_preds, reg_gts, mask: torch.Tensor, lw):
+    """The bin heads' losses over the rows of `mask` (float, 1 where a row
+    counts): the bins' softmax cross-entropy and the residuals' smooth L1,
+    each summed over the heads and normalised by the mask's count (0 when
+    the count is 0). Shared by the RPN's `rpn_loss` and the RCNN's `rcnn_loss`."""
+    num = mask.sum()
+    safe = num.clamp(min=1.0)
+    zero = torch.zeros((), device=mask.device)
+    cls_loss = 0.0
+    for logits, gt in zip(cls_preds, cls_gts):
+        cls_loss = cls_loss + (weighted_softmax_ce(logits, gt, weight=lw.cls_loss_weight) * mask).sum()
+    reg_loss = 0.0
+    for pred, gt in zip(reg_preds, reg_gts):
+        if pred.dim() == mask.dim():  # scalar residuals: add a feature axis
+            pred, gt = pred[..., None], gt[..., None]
+        reg_loss = reg_loss + (weighted_smooth_l1(pred, gt, weight=lw.reg_loss_weight) * mask).sum()
+    return (torch.where(num > 0, cls_loss / safe, zero),
+            torch.where(num > 0, reg_loss / safe, zero))

@@ -1,9 +1,9 @@
-"""KITTI dataset: sample lists, RPN batch loading, collation.
+"""KITTI dataset: sample lists, RPN and RCNN batch loading, collation.
 
-Copy of heterofusionrcnn_tpu/datasets/kitti/dataset.py (RPN samples only):
-the same sample list, the same `np.random.default_rng(0)` call sequence and
-the same batches. Images are read and resized by `image.py` instead of
-OpenCV; point clouds by the numpy loader.
+Copy of heterofusionrcnn_tpu/datasets/kitti/dataset.py: the same sample
+list, the same `np.random.default_rng(0)` call sequence and the same
+batches. Images are read and resized by `image.py` instead of OpenCV;
+point clouds by the numpy loader.
 
 Parity target: hf/datasets/kitti/kitti_dataset.py. Differences kept from the
 JAX package:
@@ -14,8 +14,9 @@ JAX package:
     multi-GPU workers sharded "by randomness" only — SURVEY.md §2.3);
   - `shard(host_index, host_count)` index-shards the sample list.
 
-RCNN sample loading (proposals/features read-back + RoI sampling,
-the JAX package's rcnn_sampling.py) is not ported yet.
+RCNN sample loading (the RPN's proposals, IoU tables and features read
+back from `proposal_dir`, `proposal_iou_dir` and `rpn_feature_dir`, and the
+RoI mini-batch sampling) lives in rcnn_sampling.py.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from heterofusionrcnn_torch.datasets.kitti import clusters as cluster_lib
 from heterofusionrcnn_torch.datasets.kitti import image as image_io
 from heterofusionrcnn_torch.datasets.kitti import labels as label_io
 from heterofusionrcnn_torch.datasets.kitti import pointcloud as pc_lib
+from heterofusionrcnn_torch.datasets.kitti.rcnn_sampling import load_rcnn_samples
 from heterofusionrcnn_torch.utils.np_box_ops import points_in_box
 
 # Batch-dict keys (parity with hf/datasets/kitti/constants.py naming).
@@ -74,6 +76,12 @@ class KittiDataset:
         self.label_dir = os.path.join(self._base_dir, "label_2")
         self.planes_dir = os.path.join(self._base_dir, "planes")
 
+        # The RPN's handoff files that the RCNN reads (set by the caller,
+        # kitti_dataset.py:226-252).
+        self.proposal_dir = None
+        self.proposal_iou_dir = None
+        self.rpn_feature_dir = None
+
         names = self.load_sample_names(self.data_split)
 
         # Augmentation combinatorics (kitti_dataset.py:116-131): every subset
@@ -106,6 +114,28 @@ class KittiDataset:
             cache_dir=config.cluster_cache_dir,
             cluster_split=config.cluster_split,
         )
+
+        # RCNN mini-batch config.
+        mb = config.mini_batch_config
+        self.cls_neg_iou_range = [
+            mb.cls_iou_3d_thresholds.neg_iou_lo,
+            mb.cls_iou_3d_thresholds.neg_iou_hi,
+        ]
+        self.cls_pos_iou_range = [
+            mb.cls_iou_3d_thresholds.pos_iou_lo,
+            mb.cls_iou_3d_thresholds.pos_iou_hi,
+        ]
+        self.reg_neg_iou_range = [
+            mb.reg_iou_3d_thresholds.neg_iou_lo,
+            mb.reg_iou_3d_thresholds.neg_iou_hi,
+        ]
+        self.reg_pos_iou_range = [
+            mb.reg_iou_3d_thresholds.pos_iou_lo,
+            mb.reg_iou_3d_thresholds.pos_iou_hi,
+        ]
+        self.roi_per_sample = mb.roi_per_sample
+        self.fg_ratio = mb.fg_ratio
+        self.hard_bg_ratio = mb.hard_bg_ratio
 
         self._rng = np.random.default_rng(0)
 
@@ -265,7 +295,7 @@ class KittiDataset:
         if model == "rpn":
             return self.load_rpn_samples(indices, **kwargs)
         if model == "rcnn":
-            raise NotImplementedError("RCNN sample loading is not ported yet")
+            return load_rcnn_samples(self, indices, **kwargs)
         raise ValueError(f"unknown model {model}")
 
     def next_batch(self, batch_size: int, shuffle: bool = True, **kwargs):

@@ -1,20 +1,24 @@
 """Shared experiment wiring of the port (heterofusionrcnn_tpu/
 experiments/common.py): config resolution, the dataset, the test-mode
-two-stage detector, the RPN in train or val mode with its loss, and the
-RPN batch function. The RCNN's training loader is not ported yet."""
+two-stage detector, either stage in train, val or test mode with its loss,
+the RCNN's train step and the batch functions of both stages."""
 
 from __future__ import annotations
 
 import os
 
+from typing import Callable, Dict
+
 import numpy as np
+import torch
 
 from heterofusionrcnn_torch.configs import config as config_lib
 from heterofusionrcnn_torch.configs import presets
 from heterofusionrcnn_torch.datasets.kitti.dataset import KittiDataset
 from heterofusionrcnn_torch.inference import TwoStageDetector
-from heterofusionrcnn_torch.models.rpn import RpnModel, rpn_loss
-from heterofusionrcnn_torch.runtime.train_state import RPN_BATCH_KEYS
+from heterofusionrcnn_torch.models.rcnn import RcnnModel, rcnn_loss
+from heterofusionrcnn_torch.models.rpn import RpnModel, rpn_fts_channels, rpn_loss
+from heterofusionrcnn_torch.runtime.train_state import RPN_BATCH_KEYS, TrainState, train_step
 
 PRESETS = {
     "rpn_multiclass": presets.rpn_multiclass,
@@ -59,33 +63,75 @@ def cluster_sizes_tuple(dataset):
     )
 
 
-def build_model(cfg, dataset, mode: str):
-    """The RPN of `cfg` in `mode` ("train", "val" or "test") with the
-    dataset's classes and mean sizes, on the CPU, and its loss function
-    (predictions -> (loss_dict, total)). An RCNN config raises: its
-    training loader (`rcnn_sampling.py`) is not ported yet."""
+def build_model(cfg, dataset, mode: str, save_rpn_feature: bool = False):
+    """The model of `cfg` (the RPN or the RCNN) in `mode` ("train", "val"
+    or "test") with the dataset's classes and mean sizes, on the CPU, and
+    its loss function (predictions -> (loss_dict, total)). The RCNN takes
+    its target thresholds from the dataset's mini-batch config and its
+    distance normaliser from the far BEV extent; `save_rpn_feature` makes
+    the RPN return its per-point features (the RPN evaluator's handoff)."""
     mc = cfg.model_config
-    if mc.model_name != "rpn_model":
-        raise NotImplementedError(
-            f"{mc.model_name}: training the RCNN needs its loader (rcnn_sampling.py), "
-            "which is not ported yet")
-    model = RpnModel(mc, dataset.num_classes, cluster_sizes_tuple(dataset),
-                     save_rpn_feature=False, mode=mode)
-    return model, lambda preds: rpn_loss(preds, mc)
+    clusters = cluster_sizes_tuple(dataset)
+    if mc.model_name == "rpn_model":
+        model = RpnModel(mc, dataset.num_classes, clusters,
+                         save_rpn_feature=save_rpn_feature, mode=mode)
+        return model, lambda preds: rpn_loss(preds, mc)
+    mb = cfg.dataset_config.mini_batch_config
+    model = RcnnModel(
+        mc, dataset.num_classes, clusters, rpn_fts_channels(mc),
+        bev_z_max=float(dataset.bev_extents[1, 1]), mode=mode,
+        cls_neg_iou_hi=mb.cls_iou_3d_thresholds.neg_iou_hi,
+        cls_pos_iou_lo=mb.cls_iou_3d_thresholds.pos_iou_lo,
+        reg_pos_iou_lo=mb.reg_iou_3d_thresholds.pos_iou_lo,
+    )
+    return model, lambda preds: rcnn_loss(preds, mc)
 
 
-def make_batch_fn(cfg, dataset, batch_size: int):
-    """next_batch() -> the RPN's host batch (numpy, exactly the
-    `RPN_BATCH_KEYS` that its train step reads), shuffled, at the config's
-    point count and image size."""
+RCNN_BATCH_KEYS = (
+    "rpn_roi", "rpn_iou", "rpn_gt", "rpn_pts", "rpn_intensity",
+    "rpn_fg_mask", "rpn_fts", "image_input", "stereo_calib_p2",
+)
+
+
+def rcnn_forward(model: RcnnModel, batch: Dict[str, torch.Tensor], generators=None):
+    """The RCNN on a batch of `RCNN_BATCH_KEYS` (the RCNN loader's)."""
+    return model(batch["rpn_roi"], batch["rpn_pts"], batch["rpn_intensity"],
+                 batch["rpn_fg_mask"], batch["rpn_fts"], batch["image_input"],
+                 batch["stereo_calib_p2"], proposals_iou=batch["rpn_iou"],
+                 proposals_gt=batch["rpn_gt"], generators=generators)
+
+
+def make_rcnn_train_step(loss_fn: Callable) -> Callable[[TrainState, Dict[str, torch.Tensor]],
+                                                        Dict[str, torch.Tensor]]:
+    """The RCNN train step, the twin of `train_state.make_rpn_train_step`:
+    train_step(state, batch) -> metrics (the three RCNN losses and
+    "total_loss"); `batch` holds `RCNN_BATCH_KEYS` on the model's device."""
+
+    def rcnn_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return train_step(state, lambda model, gens: rcnn_forward(model, batch, gens), loss_fn)[1]
+
+    return rcnn_step
+
+
+def make_batch_fn(cfg, dataset, model_kind: str, batch_size: int):
+    """next_batch() -> a shuffled host batch (numpy) of the stage
+    `model_kind` ("rpn" or "rcnn"), exactly the keys its train step reads
+    (`RPN_BATCH_KEYS` / `RCNN_BATCH_KEYS`), at the config's point count and
+    image size; the RCNN's with the config's `roi_per_sample` RoIs a frame,
+    its feature files checked against the config's stage-1 width."""
     ic = cfg.model_config.input_config
+    if model_kind == "rpn":
+        keys = RPN_BATCH_KEYS
+        kw = dict(model="rpn", pc_sample_pts=ic.pc_sample_pts)
+    else:
+        keys = RCNN_BATCH_KEYS
+        kw = dict(model="rcnn", num_rois=cfg.dataset_config.mini_batch_config.roi_per_sample,
+                  rpn_fts_channels=rpn_fts_channels(cfg.model_config))
 
     def next_batch():
-        batch, _ = dataset.next_batch(
-            batch_size, shuffle=True, model="rpn", pc_sample_pts=ic.pc_sample_pts,
-            img_w=ic.img_dims_w, img_h=ic.img_dims_h,
-        )
-        return {k: batch[k] for k in RPN_BATCH_KEYS}
+        batch, _ = dataset.next_batch(batch_size, shuffle=True, img_w=ic.img_dims_w,
+                                      img_h=ic.img_dims_h, **kw)
+        return {k: batch[k] for k in keys}
 
     return next_batch
 

@@ -24,7 +24,7 @@ from heterofusionrcnn_torch.configs.config import PipelineConfig
 from heterofusionrcnn_torch.configs.presets import rcnn_multiclass, rpn_multiclass
 from heterofusionrcnn_torch.models.extractors.layers import init_weights
 from heterofusionrcnn_torch.models.rcnn import RcnnModel
-from heterofusionrcnn_torch.models.rpn import RpnModel
+from heterofusionrcnn_torch.models.rpn import RpnModel, rpn_fts_channels
 
 # KITTI class mean sizes [l, w, h] of Car, Pedestrian, Cyclist.
 CLUSTER_SIZES = ((3.9, 1.6, 1.56), (0.8, 0.66, 1.74), (1.76, 0.6, 1.73))
@@ -50,10 +50,8 @@ class TwoStageDetector(nn.Module):
         super().__init__()
         self.rpn = RpnModel(rpn_cfg.model_config, len(cluster_sizes), cluster_sizes,
                             conv_kernels=conv_kernels)
-        lc = rpn_cfg.model_config.layers_config
-        fts_channels = self.rpn.pc_pointcnn.out_channels + lc.img_vgg_pyr.vgg_conv1[1]
         self.rcnn = RcnnModel(rcnn_cfg.model_config, len(cluster_sizes), cluster_sizes,
-                              fts_channels, bev_z_max=bev_z_max,
+                              rpn_fts_channels(rpn_cfg.model_config), bev_z_max=bev_z_max,
                               conv_kernels=conv_kernels, crop_kernel=crop_kernel)
         self.shared_vgg = rcnn_cfg.model_config.rcnn_config.rcnn_use_rpn_img_feature_map
 

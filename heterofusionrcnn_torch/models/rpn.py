@@ -32,12 +32,7 @@ from torch import nn
 
 from heterofusionrcnn_torch.configs.config import ModelConfig
 from heterofusionrcnn_torch.core import bin_codec
-from heterofusionrcnn_torch.core.losses import (
-    one_hot,
-    weighted_focal,
-    weighted_smooth_l1,
-    weighted_softmax_ce,
-)
+from heterofusionrcnn_torch.core.losses import bin_losses, one_hot, weighted_focal
 from heterofusionrcnn_torch.core.projection import rect_to_image
 from heterofusionrcnn_torch.core.rotated_iou import box_3d_iou
 from heterofusionrcnn_torch.models.extractors.img_vgg_pyr import (
@@ -120,6 +115,20 @@ def descending_order(scores: torch.Tensor) -> torch.Tensor:
     return torch.sort(scores, dim=-1, descending=True, stable=True).indices
 
 
+def rpn_fts_channels(config: ModelConfig) -> int:
+    """Width of the per-point features the RPN of `config` hands the RCNN
+    (`save_rpn_feature`): its PointCNN's output channels plus the image
+    features gathered at each point (`vgg_conv1`'s width)."""
+    lc = config.layers_config
+    with torch.device("meta"):
+        c_pc = PointCNN(lc.pc_pointcnn, _pc_in_channels(config)).out_channels
+    return c_pc + lc.img_vgg_pyr.vgg_conv1[1]
+
+
+def _pc_in_channels(config: ModelConfig) -> int:
+    return 1 if config.rpn_config.rpn_use_intensity_feature else 0
+
+
 class RpnModel(nn.Module):
     """Stage-1 proposal network. `mode`: "train", "val" or "test"."""
 
@@ -153,8 +162,7 @@ class RpnModel(nn.Module):
                                rpn.rpn_theta_search_range, rpn.rpn_theta_bin_num)
         _, _, nbx, nbz, _, _, nbt = self.bins
         k = num_classes
-        c_in = 1 if rpn.rpn_use_intensity_feature else 0
-        self.pc_pointcnn = PointCNN(lc.pc_pointcnn, c_in)
+        self.pc_pointcnn = PointCNN(lc.pc_pointcnn, _pc_in_channels(config))
         img_cls = ImgVgg if lc.img_extractor_type == "vgg" else ImgVggPyr
         self.img_vgg_pyr = img_cls(lc.img_vgg_pyr, conv_kernels=conv_kernels)
         c_pc = self.pc_pointcnn.out_channels
@@ -342,22 +350,8 @@ def rpn_loss(predictions: Dict[str, torch.Tensor], config: ModelConfig):
     seg_loss = weighted_focal(seg_softmax, predictions["seg_gt_one_hot"],
                               weight=lw.seg_loss_weight).sum() / num_total
 
-    fg = predictions["foreground_mask"].float()
-    num_fg = fg.sum()
-    safe_fg = num_fg.clamp(min=1.0)
-    zero = torch.zeros((), device=fg.device)
-
-    cls_loss = 0.0
-    for logits, gt in zip(predictions["cls_preds"], predictions["cls_gts"]):
-        cls_loss = cls_loss + (weighted_softmax_ce(logits, gt, weight=lw.cls_loss_weight) * fg).sum()
-    cls_loss = torch.where(num_fg > 0, cls_loss / safe_fg, zero)
-
-    reg_loss = 0.0
-    for pred, gt in zip(predictions["reg_preds"], predictions["reg_gts"]):
-        if pred.dim() == 2:  # scalar residuals: add a feature axis
-            pred, gt = pred[..., None], gt[..., None]
-        reg_loss = reg_loss + (weighted_smooth_l1(pred, gt, weight=lw.reg_loss_weight) * fg).sum()
-    reg_loss = torch.where(num_fg > 0, reg_loss / safe_fg, zero)
-
+    cls_loss, reg_loss = bin_losses(predictions["cls_preds"], predictions["cls_gts"],
+                                    predictions["reg_preds"], predictions["reg_gts"],
+                                    predictions["foreground_mask"].float(), lw)
     total = seg_loss + cls_loss + reg_loss
     return {"rpn_seg_loss": seg_loss, "rpn_bin_cls_loss": cls_loss, "rpn_reg_loss": reg_loss}, total

@@ -1,5 +1,6 @@
-"""Train state and the RPN train step (PyTorch port of
-heterofusionrcnn_tpu/runtime/train_state.py).
+"""Train state and the train steps (PyTorch port of
+heterofusionrcnn_tpu/runtime/train_state.py; the RCNN's step is
+`experiments.common.make_rcnn_train_step`, as in the JAX package).
 
 `TrainState` holds what the JAX package's `TrainState` pytree holds, as
 live objects: the module (its parameters and BatchNorm statistics), the
@@ -49,6 +50,26 @@ class TrainState:
         return self.optimizer.ema_state_dict()
 
 
+def train_step(state: TrainState, forward: Callable, loss_fn: Callable):
+    """One step of `state`: `forward(model, generators)` in train mode
+    (BatchNorm statistics move), `loss_fn` on its predictions, the
+    gradients, clipping, the optimizer update and the EMA, `state.step` + 1.
+    Returns the predictions and the metrics: the loss dict and
+    "total_loss", 0-d device tensors."""
+    model = state.model
+    model.train()
+    params: List[torch.Tensor] = state.optimizer.params
+    with torch.enable_grad():
+        preds = forward(model, state.generators)
+        loss_dict, total = loss_fn(preds)
+        grads = torch.autograd.grad(total, params)
+    state.optimizer.step(grads)
+    state.step += 1
+    metrics = {k: v.detach() for k, v in loss_dict.items()}
+    metrics["total_loss"] = total.detach()
+    return preds, metrics
+
+
 def make_rpn_train_step(loss_fn: Callable) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                                        Dict[str, torch.Tensor]]:
     """The RPN train step.
@@ -56,26 +77,16 @@ def make_rpn_train_step(loss_fn: Callable) -> Callable[[TrainState, Dict[str, to
     Args:
       loss_fn: predictions -> (loss_dict, total).
     Returns:
-      train_step(state, batch) -> metrics: the model forward in train mode
-      (BatchNorm statistics move), the loss, its gradients, clipping, the
-      optimizer update and the EMA, `state.step` + 1. `batch` holds
-      `RPN_BATCH_KEYS` as tensors on the model's device; the metrics are
-      the loss dict, "total_loss" and "seg_accuracy", 0-d device tensors.
+      train_step(state, batch) -> metrics (`train_step` above, plus
+      "seg_accuracy"); `batch` holds `RPN_BATCH_KEYS` as tensors on the
+      model's device.
     """
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        model = state.model
-        model.train()
-        params: List[torch.Tensor] = state.optimizer.params
-        with torch.enable_grad():
-            preds = model(*(batch.get(k) for k in RPN_BATCH_KEYS), generators=state.generators)
-            loss_dict, total = loss_fn(preds)
-            grads = torch.autograd.grad(total, params)
-        state.optimizer.step(grads)
-        state.step += 1
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
-        metrics["total_loss"] = total.detach()
+    def rpn_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        preds, metrics = train_step(
+            state, lambda model, gens: model(*(batch.get(k) for k in RPN_BATCH_KEYS),
+                                             generators=gens), loss_fn)
         metrics["seg_accuracy"] = preds["seg_accuracy"].detach()
         return metrics
 
-    return train_step
+    return rpn_step

@@ -563,7 +563,7 @@ def _train_setup(pc_sample_pts=None):
         cfg.model_config.input_config.pc_sample_pts = pc_sample_pts
     dataset = common.build_dataset(cfg, "train")
     dataset.seed(0)
-    batch = common.make_batch_fn(cfg, dataset, 2)()
+    batch = common.make_batch_fn(cfg, dataset, "rpn", 2)()
     model, loss_fn = common.build_model(cfg, dataset, "train")
     return cfg, init_weights(model, 0), loss_fn, {k: torch.from_numpy(v) for k, v in batch.items()}
 
@@ -609,6 +609,114 @@ def test_train_step_on_card_matches_cpu(cuda):
             tol = tol + 2 * lr * ((got_g[name] - want_g[name]).abs() > 1e-3 * want_g[name].abs())
         assert bool(((got[name].cpu() - val).abs() <= tol).all()), (
             name, float(((got[name].cpu() - val).abs() - tol).max()))
+
+
+def _rcnn_step(cfg, model, loss_fn, batch, device):
+    """One RCNN train step from a fresh Adam: as `_train_step`."""
+    from heterofusionrcnn_torch.experiments.common import make_rcnn_train_step
+    from heterofusionrcnn_torch.runtime.optimizer import ADAM_B1, build_optimizer
+    from heterofusionrcnn_torch.runtime.train_state import TrainState
+
+    model = model.to(device)
+    opt = build_optimizer(model, cfg.train_config.optimizer, 1, cfg.train_config.grad_clip_norm)
+    metrics = make_rcnn_train_step(loss_fn)(TrainState.create(model, opt),
+                                            {k: v.to(device) for k, v in batch.items()})
+    grads = {n: (mu / (1 - ADAM_B1)).cpu() for n, mu in opt.state_dict()["state"]["mu"].items()}
+    return {k: float(v) for k, v in metrics.items()}, model.state_dict(), grads
+
+
+@pytest.mark.cuda
+def test_rcnn_train_step_on_card_matches_cpu(cuda, tmp_path):
+    """One RCNN train step (rcnn_unittest, batch 2 of 16 RoIs from a
+    synthetic handoff over the fixture frames, dropout and path drop off)
+    on the card and on the CPU from the same weights: the losses, the
+    step's gradients (tests/rcnn_fixtures.py `grads_agree`) and the updated
+    state, widened by 2 x lr where the gradients agree only within the
+    absolute part of that tolerance."""
+    import copy
+
+    from heterofusionrcnn_torch.experiments import common
+    from heterofusionrcnn_torch.models.extractors.layers import init_weights
+    from tests.rcnn_fixtures import grads_agree, write_handoff
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = common.resolve_config("rcnn_unittest")
+    lc = cfg.model_config.layers_config
+    for fc in lc.rcnn_mlp_layers + lc.rcnn_fc_layers + lc.rcnn_pc_pointcnn.fc_layers:
+        fc.dropout_rate = 0.0
+    cfg.model_config.path_drop_probabilities = [1.0, 1.0]
+    dataset = common.build_dataset(cfg, "train")
+    dataset.seed(0)
+    dataset.proposal_dir, dataset.proposal_iou_dir, dataset.rpn_feature_dir = write_handoff(
+        dataset, str(tmp_path))
+    batch = {k: torch.from_numpy(v)
+             for k, v in common.make_batch_fn(cfg, dataset, "rcnn", 2)().items()}
+    model, loss_fn = common.build_model(cfg, dataset, "train")
+    init_weights(model, 0)
+    want_l, want, want_g = _rcnn_step(cfg, copy.deepcopy(model), loss_fn, batch, "cpu")
+    got_l, got, got_g = _rcnn_step(cfg, model, loss_fn, batch, cuda)
+    assert want_l["rcnn_reg_loss"] > 0
+    for key, val in want_l.items():
+        assert got_l[key] == pytest.approx(val, rel=1e-4, abs=1e-5), key
+    for name, g in want_g.items():
+        assert grads_agree(got_g[name], g, name), (name, float((got_g[name] - g).abs().max()))
+    lr = cfg.train_config.optimizer.initial_learning_rate
+    for name, val in want.items():
+        if not val.is_floating_point():
+            continue
+        tol = 1e-5 + 1e-3 * val.abs()
+        if name in want_g:
+            tol = tol + 2 * lr * ((got_g[name] - want_g[name]).abs() > 1e-3 * want_g[name].abs())
+        assert bool(((got[name].cpu() - val).abs() <= tol).all()), (
+            name, float(((got[name].cpu() - val).abs() - tol).max()))
+
+
+@pytest.mark.cuda
+def test_rpn_evaluator_frame_on_card_matches_cpu(cuda, tmp_path):
+    """`RpnEvaluator` on one fixture train frame (rpn_unittest, val mode,
+    features saved) on the card and on the CPU from the same weights: the
+    proposals within 1e-3 (%.3f rows), the IoU table and the feature file
+    within 1e-4, the ledgers within 1e-4. The proposal head is scaled by
+    0.1 so every decoded box has a positive size (tests/
+    test_torch_evaluator.py)."""
+    import glob
+    import os
+
+    from heterofusionrcnn_torch.experiments import common
+    from heterofusionrcnn_torch.models.extractors.layers import init_weights
+    from heterofusionrcnn_torch.runtime.evaluator import RpnEvaluator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = common.resolve_config("rpn_unittest")
+    cfg.model_config.path_drop_probabilities = [1.0, 1.0]
+    roots = []
+    for i, device in enumerate(("cpu", cuda)):
+        dataset = common.build_dataset(cfg, "val", "train")
+        dataset.sample_list = dataset.sample_list[:1]
+        dataset.num_samples = 1
+        model, _ = common.build_model(cfg, dataset, "val", save_rpn_feature=True)
+        init_weights(model, 0)
+        with torch.no_grad():
+            model.fc_output.Dense_0.weight.mul_(0.1)
+            model.fc_output.Dense_0.bias.mul_(0.1)
+        root = str(tmp_path / str(i))
+        RpnEvaluator(model.to(device), dataset, cfg, root,
+                     save_rpn_feature=True).run_checkpoint_once(None, 7)
+        roots.append(os.path.join(root, "rpn_unittest", "predictions"))
+    for pattern, atol in (("proposals_and_scores/train/7/*.txt", 1e-3 + 1e-6),
+                          ("proposals_iou/train/7/*.txt", 1e-4),
+                          ("rpn_feature/train/7/*.npy", 1e-4),
+                          ("rpn_avg_losses.csv", 1e-4), ("rpn_avg_seg_acc.csv", 1e-4),
+                          ("rpn_total_recall.csv", 1e-4)):
+        files = [sorted(glob.glob(os.path.join(r, pattern))) for r in roots]
+        assert len(files[0]) == len(files[1]) == 1, pattern
+        load = (np.load if pattern.endswith(".npy") else
+                lambda p: np.loadtxt(p, ndmin=2, delimiter="," if p.endswith(".csv") else None))
+        want, got = (load(f[0]) for f in files)
+        assert got.shape == want.shape, pattern
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol, err_msg=pattern)
 
 
 @pytest.mark.cuda
