@@ -112,6 +112,40 @@
    absolute part), and 8
    full-width steps on one repeated batch with a positive RoI (the profiled
    step's batch), which must lower the total loss.
+10. The RCNN's evaluation (`rcnn_eval_phase`): `run_evaluation
+   --save_rpn_feature` in process on the fixture val split from step 8's
+   RPN checkpoint (val mode on a labelled split keeps the train NMS sizes,
+   512 proposals a frame, as the JAX model does), then
+   `run_evaluation --pipeline_config rcnn_multiclass --num_rois 100` in
+   process over that handoff (the first 100 proposals of each frame) from
+   step 9's RCNN checkpoint, at `--eval_batch_size` 1 and then 2, into
+   --out/chip_smoke_rcnn_eval. Each
+   forward runs between zeroing and reading every launch count: KNN 4 (the
+   brute arm), FPS 3, XConv 4 (plus split epilogues), NMS 1, nothing else.
+   Prints ms per frame (host clock around each forward and its copy to the
+   host, the JAX evaluator's timing) and one profiled frame's device time
+   and busy share (over the batch-1 median). The first frame's KNN, FPS,
+   XConv, split-epilogue and NMS calls are held against their plain
+   versions (indices bit-exact, XConv within its gate), timed and bounded
+   (rows *_rcnn_eval of the kernels line, launches per forward). Both
+   runs' files are checked (finite final rows and a KITTI file a frame,
+   both ap_summary.json, the two ledgers, logs/rcnn_eval.csv) and batch
+   2's held against batch 1's as tests/test_evaluator_batched.py holds
+   them (final rows within 2e-5 as sets of rows, KITTI rows within 1e-2,
+   ledgers within 1e-4). Then the CLI's `--evaluate_repeatedly` over the
+   last two RCNN checkpoints, stopping at the second: each evaluated once
+   with `num_rois` 100, nothing on a second call.
+11. Export (`export_phase`): the batch-4 detector with both switches on
+   through `runtime.export.export_fused_inference` into
+   --out/chip_smoke_export (its graph calls the `torch.ops.hfr` ops), then
+   `load_exported` in a fresh process that imports only torch and the
+   port, on inputs of seed 1: its outputs against the eager forward's on
+   the same inputs (proposals, scores and boxes within 1e-4 + 1e-4
+   |eager|; classes, valid flags and counts exact) and different from the
+   outputs for the trace inputs; its launches per CUDA function (the
+   profiler, one forward) equal to step 4's counted switches-on forward's,
+   the KNN's sorted and brute arms apart. Prints the export time, the
+   artifact's size and the loaded forward's ms per batch beside the eager.
 
 Prints a {"kernels": [...]} JSON line, then the result as its last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -123,6 +157,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import json
 import os
 import shutil
@@ -551,28 +586,18 @@ def fps_row(rows, calls, reps, suffix="", sweeps=True):
                 lambda c: sampling._fps_kernel(xyz, npoint, c), reps)
 
 
-def check_kernels(calls, calls_on, reps):
-    """Kernel vs plain on every recorded call (`calls`: the switches-off
-    forward, `calls_on`: the switched kernels of the switches-on forward);
-    times and bounds summed over the calls of one forward."""
+def nms_row(rows, calls, reps, suffix="", sweeps=True):
+    """Row nms<suffix> over the recorded NMS calls; `sweeps` reruns each
+    call on clusters of every size."""
     import torch
-    import torch.nn.functional as F
 
-    from heterofusionrcnn_torch.ops import conv, cropping, nms, xconv
+    from heterofusionrcnn_torch.ops import nms
     from heterofusionrcnn_torch.ops.dispatch import cluster_threads
 
-    rows = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def row(name, source):
-        return new_row(rows, name, source)
-
-    knn_rows(rows, calls, reps)
-    fps_row(rows, calls, reps)
-
     # NMS: NMS_OPS_PER_IOU per rotated IoU, counted for the IoUs this data
     # needs. Every call runs again on clusters of every size (`sweep`).
-    r = row("nms", "heterofusionrcnn_torch/ops/csrc/nms.cu")
+    r = new_row(rows, "nms" + suffix, "heterofusionrcnn_torch/ops/csrc/nms.cu", "nms")
     r["sweep"] = []
     for a, kw in calls["oriented_nms"]:
         bev, scores, thresh, keep = a[:4]
@@ -594,10 +619,19 @@ def check_kernels(calls, calls_on, reps):
                                threads=threads, us_per_step=ms * 1e3 / keep))
         print(f"nms {shape}: {ms:.4f} ms on clusters of {c} x {threads} threads, "
               f"{ms * 1e3 / keep:.3f} us per keep step, {ious} IoUs", flush=True)
-        r["sweep"] += sweep(
-            shape, want, keep, lambda c: nms.nms_clusters(n, c, cluster_threads(n, c)),
-            lambda c: nms._nms_kernel(bev, scores, thresh, keep, valid, c), reps)
+        if sweeps:
+            r["sweep"] += sweep(
+                shape, want, keep, lambda c: nms.nms_clusters(n, c, cluster_threads(n, c)),
+                lambda c: nms._nms_kernel(bev, scores, thresh, keep, valid, c), reps)
 
+
+def xconv_row(rows, calls, reps, suffix=""):
+    """Row xconv<suffix> over the recorded fused XConv calls."""
+    import torch
+
+    from heterofusionrcnn_torch.ops import xconv
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # Fused XConv: FLOPs of lift-1, lift-2, X-net, X @ in and the composed
     # separable conv, each three TF32 tensor-core products (3xTF32; the
     # FP32-FMA bound of the same work is kept beside it as `fp32_bound_ms`);
@@ -605,7 +639,7 @@ def check_kernels(calls, calls_on, reps):
     # `matmul_ms` times the composed product alone as one FP32 torch.matmul
     # (TF32 off) on the materialised (B*P, K*Cin) operand: a yardstick of the
     # product the kernel fuses, never called by the port.
-    r = row("xconv", "heterofusionrcnn_torch/ops/csrc/xconv.cu")
+    r = new_row(rows, "xconv" + suffix, "heterofusionrcnn_torch/ops/csrc/xconv.cu", "xconv")
     r["fp32_bound_ms"] = 0.0
     r["matmul_ms"] = 0.0
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -645,9 +679,15 @@ def check_kernels(calls, calls_on, reps):
               f"FP32 matmul of the product alone {mms:.4f} ms ({sep / mms * 1e-9:.2f} TFLOP/s)",
               flush=True)
 
+
+def epilogue_row(rows, calls, reps, suffix=""):
+    """Row xconv_epilogue<suffix> over the recorded split-epilogue calls."""
+    from heterofusionrcnn_torch.ops import xconv
+
     # The XConv's split epilogue: the splits' partial sums read once, the
     # output written once; ELU and the affine on each output.
-    r = row("xconv_epilogue", "heterofusionrcnn_torch/ops/csrc/xconv.cu")
+    r = new_row(rows, "xconv_epilogue" + suffix, "heterofusionrcnn_torch/ops/csrc/xconv.cu",
+                "xconv_epilogue")
     for (partial, sc, bc), _ in calls["xconv_split_epilogue"]:
         r["max_abs_err"] = max(r["max_abs_err"], check_epilogue(partial, sc, bc))
         ms = cuda_ms(lambda: xconv.xconv_split_epilogue(partial, sc, bc), reps)
@@ -657,6 +697,27 @@ def check_kernels(calls, calls_on, reps):
         r["ms"] += ms
         r["plain_ms"] += pms
         r["calls"].append(dict(shape=f"{s_}x{m}x{d}", ms=ms, plain_ms=pms))
+
+
+def check_kernels(calls, calls_on, reps):
+    """Kernel vs plain on every recorded call (`calls`: the switches-off
+    forward, `calls_on`: the switched kernels of the switches-on forward);
+    times and bounds summed over the calls of one forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from heterofusionrcnn_torch.ops import conv, cropping
+
+    rows = {}
+
+    def row(name, source):
+        return new_row(rows, name, source)
+
+    knn_rows(rows, calls, reps)
+    fps_row(rows, calls, reps)
+    nms_row(rows, calls, reps)
+    xconv_row(rows, calls, reps)
+    epilogue_row(rows, calls, reps)
 
     # Fused 3x3 conv and transposed conv: 2 * 9 * Cin * Cout operations per
     # (input) pixel, each three TF32 tensor-core products (3xTF32), against
@@ -1526,6 +1587,390 @@ def two_stage_phase(kernels, out_root):
     return report, rows
 
 
+# Step 10, the RCNN's evaluation: the RPN evaluator writes the val split's
+# handoff from step 8's checkpoint, then the evaluation CLI runs step 9's
+# RCNN over it at 100 RoIs a frame.
+RCNN_EVAL_ROIS = 100
+# Launches of every RCNN eval forward (sets of 512 and fewer points: the
+# KNN's brute arm), besides split epilogues.
+RCNN_EVAL_PER_FORWARD = {"knn": 4, "fps": 3, "xconv": 4, "nms": 1}
+RCNN_EVAL_OPS = ("knn_point", "farthest_point_sample", "fused_xconv", "xconv_split_epilogue",
+                 "oriented_nms")
+# tests/test_evaluator_batched.py's tolerances for batch 2 against batch 1:
+# the final rows (%.5f), the KITTI rows (3 decimals), the ledgers.
+FINAL_ATOL, KITTI_ATOL, LEDGER_ATOL = 2e-5, 1e-2, 1e-4
+
+
+def _same_row_sets(got, want, atol, name):
+    """Rows of `got` matched one to one with rows of `want` (the pairing of
+    least total difference: rows of equal scores may come in either order),
+    each pair within `atol` (+ 1e-9 for the decimal -> binary parse)."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: rows {got.shape} against {want.shape}")
+    if len(got):
+        diff = np.abs(got[:, None, :] - want[None, :, :]).max(-1)
+        rows, cols = linear_sum_assignment(diff)
+        if diff[rows, cols].max() > atol + 1e-9:
+            raise AssertionError(f"{name}: rows differ by {diff[rows, cols].max()}")
+
+
+def _kitti_rows(path):
+    import numpy as np
+
+    if os.path.getsize(path) == 0:
+        return np.zeros((0, 15))
+    return np.atleast_2d(np.genfromtxt(path, usecols=range(1, 16)))
+
+
+def check_rcnn_eval_files(pred, step, frames):
+    """One RCNN evaluation's files under `pred` (a predictions dir): finite
+    final rows and a KITTI file for each frame, both AP summaries, the two
+    ledgers (one row, finite) and the headed log beside them."""
+    import numpy as np
+
+    final = os.path.join(pred, "final_predictions_and_scores", "val", str(step))
+    kitti = os.path.join(pred, "kitti_native_eval", "0.1", str(step))
+    for name in frames:
+        rows = np.loadtxt(os.path.join(final, name + ".txt"), ndmin=2).reshape(-1, 9)
+        if not (np.isfinite(rows).all() and ((rows[:, 7] >= 0) & (rows[:, 7] <= 1)).all()):
+            raise AssertionError(f"final predictions of {name}: {rows}")
+        _kitti_rows(os.path.join(kitti, "data", name + ".txt"))
+    for sub in ("", "results_05_iou"):
+        with open(os.path.join(kitti, sub, "ap_summary.json")) as f:
+            if len(json.load(f)) != 12:
+                raise AssertionError(f"ap_summary.json in {kitti}/{sub}")
+    for name, width in (("rcnn_avg_losses.csv", 5), ("rcnn_avg_cls_acc.csv", 2)):
+        rows = np.loadtxt(os.path.join(pred, name), delimiter=",", ndmin=2)
+        if rows.shape != (1, width) or not np.isfinite(rows).all():
+            raise AssertionError(f"{name}: {rows}")
+    with open(os.path.join(os.path.dirname(pred), "logs", "rcnn_eval.csv")) as f:
+        if [r[0] for r in csv.reader(f)] != ["global_step", str(step)]:
+            raise AssertionError("logs/rcnn_eval.csv")
+
+
+def compare_rcnn_eval(pred_a, pred_b, step, frames):
+    """Batch 2's files against batch 1's (tests/test_evaluator_batched.py):
+    the final rows within FINAL_ATOL as sets, the KITTI rows within
+    KITTI_ATOL, the ledgers within LEDGER_ATOL."""
+    import numpy as np
+
+    for name in frames:
+        for sub, loader, atol in (
+                (os.path.join("final_predictions_and_scores", "val", str(step)),
+                 lambda p: np.loadtxt(p, ndmin=2).reshape(-1, 9), FINAL_ATOL),
+                (os.path.join("kitti_native_eval", "0.1", str(step), "data"), _kitti_rows,
+                 KITTI_ATOL)):
+            _same_row_sets(loader(os.path.join(pred_a, sub, name + ".txt")),
+                           loader(os.path.join(pred_b, sub, name + ".txt")), atol,
+                           f"{sub}/{name}")
+    for name in ("rcnn_avg_losses.csv", "rcnn_avg_cls_acc.csv"):
+        a, b = (np.loadtxt(os.path.join(p, name), delimiter=",", ndmin=2) for p in (pred_a, pred_b))
+        if a.shape != b.shape or np.abs(a - b).max() > LEDGER_ATOL:
+            raise AssertionError(f"{name}: {a} against {b}")
+
+
+def rcnn_eval_phase(kernels, out_root):
+    """Step 10 (module docstring): the val handoff, the RCNN evaluation CLI
+    at batch 1 and 2 with its checks, one profiled frame, the first frame's
+    kernel calls held and timed (rows *_rcnn_eval), and the watcher."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from heterofusionrcnn_torch.experiments import common, run_evaluation
+    from heterofusionrcnn_torch.runtime import evaluator
+    from heterofusionrcnn_torch.runtime.checkpoint import CheckpointManager
+
+    rpn_root = os.path.join(out_root, "chip_smoke_train")
+    t0 = time.perf_counter()
+    summary, = run_evaluation.main([
+        "--pipeline_config", "rpn_multiclass", "--dataset_dir", KITTI_DIR, "--output_root",
+        rpn_root, "--data_split", "val", "--save_rpn_feature"])
+    report = dict(handoff_s=time.perf_counter() - t0, rpn_step=summary["global_step"])
+    pred = os.path.join(rpn_root, "rpn_multiclass", "predictions")
+    dirs = [os.path.join(pred, d, "val", str(summary["global_step"]))
+            for d in ("proposals_and_scores", "proposals_iou", "rpn_feature")]
+    # On a labelled split the RPN's val mode keeps the train NMS sizes (512
+    # proposals a frame, as in JAX); --num_rois takes the first 100.
+    rpn = common.resolve_config("rpn_multiclass").model_config.rpn_config
+    props = [np.loadtxt(os.path.join(dirs[0], n), ndmin=2) for n in os.listdir(dirs[0])]
+    if not props or any(p.shape[0] > rpn.rpn_train_post_nms_size or p.shape[1] != 8
+                        or not np.isfinite(p).all() for p in props):
+        raise AssertionError(f"val handoff proposals: {[p.shape for p in props]}")
+    report["handoff_proposals"] = [p.shape[0] for p in props]
+
+    ckpts = os.path.abspath(os.path.join(out_root, "chip_smoke_rcnn", "rcnn_multiclass",
+                                         "checkpoints"))
+    base = os.path.join(out_root, "chip_smoke_rcnn_eval")
+    shutil.rmtree(base, ignore_errors=True)
+    apply = evaluator.RcnnEvaluator._apply
+    forwards, first, kept = [], {}, []
+
+    def counted_apply(self, batch):
+        record = not first
+        for kern in kernels.values():
+            kern.launches = 0
+        with recording(RCNN_EVAL_OPS) if record else contextlib.nullcontext() as calls:
+            out = apply(self, batch)
+            torch.cuda.synchronize()
+        forwards.append(dict(batch=self.eval_batch_size,
+                             launches={k: kern.launches for k, kern in kernels.items()}))
+        if record:
+            first.update(calls)
+            kept.append((self, batch))
+        return out
+
+    def cli(root, *flags):
+        os.makedirs(os.path.join(root, "rcnn_multiclass"), exist_ok=True)
+        if not os.path.exists(os.path.join(root, "rcnn_multiclass", "checkpoints")):
+            os.symlink(ckpts, os.path.join(root, "rcnn_multiclass", "checkpoints"))
+        return run_evaluation.main([
+            "--pipeline_config", "rcnn_multiclass", "--dataset_dir", KITTI_DIR, "--output_root",
+            root, "--data_split", "val", "--num_rois", str(RCNN_EVAL_ROIS), "--proposal_dir",
+            dirs[0], "--proposal_iou_dir", dirs[1], "--rpn_feature_dir", dirs[2], *flags])
+
+    summaries = {}
+    with patched(evaluator.RcnnEvaluator, "_apply", counted_apply):
+        for bs in (1, 2):
+            summaries[bs], = cli(os.path.join(base, f"batch{bs}"), "--eval_batch_size", str(bs))
+    step = summaries[1]["global_step"]
+    preds = {bs: os.path.join(base, f"batch{bs}", "rcnn_multiclass", "predictions")
+             for bs in (1, 2)}
+    final = os.path.join(preds[1], "final_predictions_and_scores", "val", str(step))
+    frames = sorted(os.path.splitext(n)[0] for n in os.listdir(final))
+    if not frames or len([f for f in forwards if f["batch"] == 1]) != len(frames):
+        raise AssertionError(f"{len(forwards)} forwards for frames {frames}")
+    for f in forwards:
+        got = {k: f["launches"][k] for k in RCNN_EVAL_PER_FORWARD}
+        others = {k: v for k, v in f["launches"].items()
+                  if k not in RCNN_EVAL_PER_FORWARD and k != "xconv_epilogue" and v}
+        if got != RCNN_EVAL_PER_FORWARD or others:
+            raise AssertionError(f"RCNN eval forward (batch {f['batch']}) launches {f['launches']}")
+    for bs in (1, 2):
+        check_rcnn_eval_files(preds[bs], step, frames)
+    compare_rcnn_eval(preds[1], preds[2], step, frames)
+
+    tstats = {bs: summaries[bs]["inference_time_stats"] for bs in (1, 2)}
+    ev, batch = kept[0]
+    profiled = profile_forward(lambda: apply(ev, batch), (), top=20)
+    del kept, ev, batch
+    median_ms = tstats[1]["median"] * 1e3
+    report.update(step=step, frames=len(frames), launches_per_forward=forwards[0]["launches"],
+                  forwards=forwards, ms_per_frame={bs: {k: v * 1e3 for k, v in t.items()}
+                                                   for bs, t in tstats.items()},
+                  profile=profiled, device_busy_share=profiled["device_busy_ms"] / median_ms,
+                  avg_cls_acc=summaries[1]["avg_cls_acc"], avg_losses=summaries[1]["avg_losses"])
+    print(f"RCNN eval: {len(frames)} frames, {RCNN_EVAL_ROIS} RoIs a frame; ms per frame (host "
+          f"clock) batch 1 median {median_ms:.2f} mean {tstats[1]['mean'] * 1e3:.2f}, batch 2 "
+          f"median {tstats[2]['median'] * 1e3:.2f}; one frame {profiled['device_busy_ms']:.2f} ms "
+          f"of device time, busy share {report['device_busy_share']:.3f}; launches a forward "
+          f"{forwards[0]['launches']}", flush=True)
+
+    # The watcher over two checkpoints through the CLI, stopping at the
+    # second: each evaluated once, nothing on a second call.
+    watch = os.path.join(base, "watch")
+    os.makedirs(os.path.join(watch, "rcnn_multiclass", "checkpoints"))
+    steps = CheckpointManager(ckpts).all_steps()[-2:]
+    for s_ in steps:
+        os.symlink(os.path.join(ckpts, str(s_)),
+                   os.path.join(watch, "rcnn_multiclass", "checkpoints", str(s_)))
+    evaluated = []
+    once = evaluator.RcnnEvaluator.run_checkpoint_once
+
+    def counted_once(self, state, step_, **kw):
+        evaluated.append((step_, kw))
+        return once(self, state, step_, **kw)
+
+    with patched(evaluator.RcnnEvaluator, "run_checkpoint_once", counted_once), \
+            patched(run_evaluation, "repeated_checkpoint_run", functools.partial(
+                evaluator.repeated_checkpoint_run, stop_at_step=steps[-1])):
+        for _ in range(2):
+            cli(watch, "--evaluate_repeatedly")
+    if evaluated != [(s_, {"num_rois": RCNN_EVAL_ROIS}) for s_ in steps]:
+        raise AssertionError(f"the watcher evaluated {evaluated}")
+    report["watcher_evaluated"] = [s_ for s_, _ in evaluated]
+
+    # The first frame's kernel calls against their plain versions, timed.
+    rows = {}
+    with torch.no_grad():
+        knn_rows(rows, first, REPS, "_rcnn_eval")
+        fps_row(rows, first, REPS, "_rcnn_eval", sweeps=False)
+        xconv_row(rows, first, REPS, "_rcnn_eval")
+        epilogue_row(rows, first, REPS, "_rcnn_eval")
+        nms_row(rows, first, REPS, "_rcnn_eval", sweeps=False)
+    if rows["knn_prep_rcnn_eval"]["calls"] or report["launches_per_forward"]["knn_prep"]:
+        raise AssertionError("an RCNN eval KNN call took the sorted arm")
+    del rows["knn_prep_rcnn_eval"]  # not on this path: every set is below 4096 points
+    for name in ("knn", "fps", "xconv", "xconv_epilogue", "nms"):
+        rows[name + "_rcnn_eval"]["launches"] = report["launches_per_forward"][name]
+    if not report["launches_per_forward"]["xconv_epilogue"]:
+        del rows["xconv_epilogue_rcnn_eval"]
+    report["xconv_max_abs_err"] = rows["xconv_rcnn_eval"]["max_abs_err"]
+    finish_rows(rows)
+    del first
+    torch.cuda.empty_cache()
+    return report, rows
+
+
+# Step 11, export: the batch-4 switches-on detector through
+# `runtime.export`, loaded and run in a fresh process on inputs of another
+# seed. Its outputs against the eager forward's: boxes within
+# EXPORT_RTOL |eager| + EXPORT_ATOL, classes, valid flags and counts exact.
+EXPORT_ATOL = EXPORT_RTOL = 1e-4
+EXPORT_SEED = 1
+# The CUDA functions of each kernel, as the profiler names them.
+KERNEL_FUNCTIONS = {
+    "knn": ("knn_brute_kernel", "knn_sorted_kernel"), "knn_prep": ("knn_prep_kernel",),
+    "fps": ("fps_kernel",), "nms": ("nms_kernel",), "xconv": ("xconv_kernel",),
+    "xconv_epilogue": ("xconv_split_epilogue",), "conv": ("conv3x3_kernel",),
+    "convt": ("convt3x3_kernel",), "crop": ("crop_gather_kernel",),
+}
+# The fresh process: imports torch and the port only, loads the artifact,
+# runs it on a batch of EXPORT_SEED (warm-up, then timed with CUDA events),
+# profiles one forward (launches by CUDA function name; a kernel of its own
+# opens the trace, whose first records the profiler was seen to drop),
+# saves inputs and outputs, prints one JSON line.
+LOADED_CHILD = r"""
+import json, sys, time
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from heterofusionrcnn_torch.configs.presets import rpn_multiclass
+from heterofusionrcnn_torch.inference import random_batch
+from heterofusionrcnn_torch.runtime.export import load_exported
+
+path, out, seed, batch, iters = sys.argv[1], sys.argv[2], *map(int, sys.argv[3:6])
+t0 = time.perf_counter()
+forward = load_exported(path)
+load_s = time.perf_counter() - t0
+host = random_batch(rpn_multiclass(), batch, seed)
+keys = ("point_cloud", "image_input", "stereo_calib_p2")
+inputs = [torch.from_numpy(host[k]).cuda() for k in keys]
+t0 = time.perf_counter()
+result = forward(*inputs)
+torch.cuda.synchronize()
+first_s = time.perf_counter() - t0
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(iters):
+    forward(*inputs)
+end.record()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    torch.ones(1, device="cuda").add_(1)  # the trace's first kernel: none of the forward's
+    torch.cuda.synchronize()
+    forward(*inputs)
+    torch.cuda.synchronize()
+kernels = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.device_time_total > 0}
+busy = sum(e.device_time_total for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.device_time_total > 0) / 1e3
+torch.save({"inputs": [t.cpu() for t in inputs],
+            "outputs": {k: v.cpu() for k, v in result.items()}}, out)
+print(json.dumps(dict(load_s=load_s, first_forward_s=first_s,
+                      ms=start.elapsed_time(end) / iters, device_busy_ms=busy,
+                      kernels=kernels)))
+"""
+
+
+def launches_by_function(names_counts):
+    """{CUDA function of KERNEL_FUNCTIONS: launches} from {profiler kernel
+    name: count} (each template instance of a function summed)."""
+    import re
+
+    out = {}
+    for fn in (f for fns in KERNEL_FUNCTIONS.values() for f in fns):
+        out[fn] = sum(count for key, count in names_counts.items()
+                      if re.search(rf"(?<!\w){fn}(?!\w)", key))
+    return out
+
+
+def launches_by_kernel(by_function):
+    """{kernel: launches} from `launches_by_function`'s counts."""
+    return {kernel: sum(by_function[f] for f in fns) for kernel, fns in KERNEL_FUNCTIONS.items()}
+
+
+def export_phase(out_root, launches_on):
+    """Step 11 (module docstring): export, a fresh process's load and run,
+    its outputs and launches against the eager switches-on forward's."""
+    import torch
+
+    from heterofusionrcnn_torch.inference import build_two_stage
+    from heterofusionrcnn_torch.runtime.export import export_fused_inference
+
+    det, inputs = build_two_stage(BATCH, SEED, "cuda", conv_kernels=True, crop_kernel=True)
+    randomize_batchnorm(det, SEED)
+    root = os.path.abspath(os.path.join(out_root, "chip_smoke_export"))
+    shutil.rmtree(root, ignore_errors=True)
+    path = os.path.join(root, "two_stage.pt2")
+    t0 = time.perf_counter()
+    size = export_fused_inference(det, *inputs, path)
+    report = dict(export_s=time.perf_counter() - t0, artifact_bytes=size)
+    graph = torch.export.load(path).graph
+    report["graph_ops"] = {}
+    for node in graph.nodes:
+        if node.op == "call_function" and str(node.target).startswith("hfr."):
+            op = str(node.target).split(".")[1]
+            report["graph_ops"][op] = report["graph_ops"].get(op, 0) + 1
+    del graph
+    print(f"export: {report['export_s']:.1f} s, artifact {size / 1e6:.2f} MB, custom ops in the "
+          f"graph {report['graph_ops']}", flush=True)
+
+    saved = os.path.join(root, "loaded_outputs.pt")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", LOADED_CHILD, path, saved, str(EXPORT_SEED),
+                           str(BATCH), str(ITERS)], cwd=root, env=env, capture_output=True,
+                          text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the loaded artifact failed in a fresh process:\n{proc.stderr}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    result = torch.load(saved)
+    new = [t.cuda() for t in result["inputs"]]
+    got = {k: v.cuda() for k, v in result["outputs"].items()}
+    eager = det(*new)
+    if set(got) != set(eager):
+        raise AssertionError(f"loaded outputs {sorted(got)} != eager {sorted(eager)}")
+    err = {}
+    for key in ("proposals", "proposal_scores", "final_boxes", "final_scores"):
+        diff = (got[key] - eager[key]).abs()
+        err[key] = float(diff.max())
+        if not bool((diff <= EXPORT_ATOL + EXPORT_RTOL * eager[key].abs()).all()):
+            raise AssertionError(f"loaded {key} differs from the eager forward's by {err[key]}")
+    for key in ("final_classes", "final_valid", "num_final"):
+        if not torch.equal(got[key], eager[key]):
+            raise AssertionError(f"loaded {key} differs from the eager forward's")
+    traced = det(*inputs)
+    for key in ("proposals", "final_boxes"):
+        if torch.allclose(got[key], traced[key]):
+            raise AssertionError(f"loaded {key} equal the outputs for the trace inputs")
+    check_outputs(got, BATCH)
+
+    # Every kernel as often as step 4's counted eager forward launched it,
+    # and the KNN's arms alike (one prep launch a sorted-arm call): the
+    # same arms and paths.
+    loaded_fns = launches_by_function(child["kernels"])
+    loaded = launches_by_kernel(loaded_fns)
+    arms = (loaded_fns["knn_sorted_kernel"], loaded_fns["knn_brute_kernel"])
+    if loaded != launches_on or arms != (launches_on["knn_prep"],
+                                         launches_on["knn"] - launches_on["knn_prep"]):
+        raise AssertionError(f"loaded launches {loaded_fns}, counted eager {launches_on}")
+    eager_ms = cuda_ms(lambda: det(*new), ITERS)
+    report.update(loaded=child, loaded_launches=loaded, launches_by_function=loaded_fns,
+                  max_abs_err=err,
+                  loaded_ms=child["ms"], eager_ms=eager_ms, num_final=got["num_final"].tolist())
+    print(f"loaded artifact (fresh process): load {child['load_s']:.1f} s, first forward "
+          f"{child['first_forward_s']:.1f} s, {child['ms']:.2f} ms per batch of {BATCH} (eager "
+          f"{eager_ms:.2f}), device {child['device_busy_ms']:.2f} ms; launches {loaded}; max "
+          f"|loaded - eager| {err}", flush=True)
+    del det, eager, traced, got
+    torch.cuda.empty_cache()
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="outputs", help="directory for chip_smoke.json")
@@ -1642,6 +2087,9 @@ def main(argv=None) -> int:
     rows.update(train_rows)
     report["two_stage_training"], rcnn_rows = two_stage_phase(kernels, args.out)
     rows.update(rcnn_rows)
+    report["rcnn_eval"], eval_rows = rcnn_eval_phase(kernels, args.out)
+    rows.update(eval_rows)
+    report["export"] = export_phase(args.out, launches_on)
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

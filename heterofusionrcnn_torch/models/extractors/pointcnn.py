@@ -8,7 +8,8 @@ routes inference through its fused Pallas kernel (`_fused_xconv_mode`).
 The modules hold the same parameters as the flax tree; `XConv.weights()`
 folds them for the fused op, and `XConv.kernel_weights()` keeps that fold
 (with the kernel's arranged Wc on the card) until a parameter or buffer
-it reads changes. The fused op has no backward: in training, and wherever
+it reads changes; a traced graph (`runtime/export.py`) folds from the
+parameters instead. The fused op has no backward: in training, and wherever
 autograd is on, an XConv runs its layers one by one (the JAX package's
 XLA path), with BatchNorm on batch statistics in training. In eval mode
 with autograd on, the CPU takes the same layer-by-layer path (the JAX
@@ -96,7 +97,12 @@ class XConv(nn.Module):
         """`weights()` with Wc arranged for the kernel where the module
         lives on the card, kept until the `_version` or `data_ptr` of a
         tensor it reads changes (an in-place update, `load_state_dict`, a
-        move to another device)."""
+        move to another device). Under `torch.export` or `torch.compile`
+        (fake tensors: no data pointer) the fold is computed in the graph
+        from the parameters on every call, nothing kept, and the op
+        arranges Wc per call."""
+        if torch.compiler.is_compiling():
+            return self.weights()
         key = tuple((t._version, t.data_ptr()) for t in self._folded_tensors())
         if self._folded is None or self._folded[0] != key:
             with torch.no_grad():

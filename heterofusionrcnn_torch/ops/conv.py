@@ -9,13 +9,16 @@ the conv weight (Cout, Cin, 3, 3) and the transposed conv weight
 latter flipped in both spatial axes against flax, see
 `layers.ConvTransposeBNRelu`). CUDA tensors launch the kernels of
 `csrc/conv.cu` and `csrc/convt.cu`, implicit GEMMs on the tensor cores in
-3xTF32 (`csrc/conv_common.cuh`); CPU tensors run the plain versions. Any H
-and W are taken; the TPU's tile-fit gate has no counterpart.
+3xTF32 (`csrc/conv_common.cuh`); CPU tensors run the plain versions; each
+through its custom op (`hfr::conv3x3_affine_relu`,
+`hfr::convtranspose3x3_affine_relu`). Any H and W are taken; the TPU's
+tile-fit gate has no counterpart.
 
-The kernels take the weight as their GEMM's B operand, arranged here once
-per call (`conv_weight_operand`, `convt_weight_operand`): K rows in the
-kernel's order (`conv_gemm_weight`, `convt_gemm_weight`), each value split
-into two TF32 parts (`split_tf32`), cut into wgmma B tiles (`arrange_b`).
+The kernels take the weight as their GEMM's B operand, arranged inside the
+op's CUDA implementation once per call from the weight it is given
+(`conv_weight_operand`, `convt_weight_operand`): K rows in the kernel's
+order (`conv_gemm_weight`, `convt_gemm_weight`), each value split into two
+TF32 parts (`split_tf32`), cut into wgmma B tiles (`arrange_b`).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, pointers, use_kernel
+from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, one_device, pointers
 
 _ARGS = [P, P, P, P, P, I, I, I, I, I, I]
 N_ALIGN = 64  # output channels of the arranged weight padded to this (kNAlign)
@@ -135,12 +138,30 @@ def conv3x3_affine_relu(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tens
       x (B, Cin, H, W); weight (Cout, Cin, 3, 3); scale, shift (Cout,).
     Returns: (B, Cout, H, W).
     """
+    _check(x, weight, scale, shift, cin_dim=1)
+    return torch.ops.hfr.conv3x3_affine_relu(x, weight, scale, shift, relu)
+
+
+@torch.library.custom_op("hfr::conv3x3_affine_relu", mutates_args=(), device_types="cpu")
+def _conv_op(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+             relu: bool) -> torch.Tensor:
+    return conv3x3_affine_relu_plain(x, weight, scale, shift, relu)
+
+
+@_conv_op.register_kernel("cuda")
+def _conv_cuda(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+               relu: bool) -> torch.Tensor:
+    one_device(x, weight, scale, shift)
     cout = _check(x, weight, scale, shift, cin_dim=1)
-    if not use_kernel(x, weight, scale, shift):
-        return conv3x3_affine_relu_plain(x, weight, scale, shift, relu)
-    wt = conv_weight_operand(weight)
-    return _launch(CONV_KERNEL, "hfr_conv3x3", x, wt, scale, shift, cout,
-                   x.shape[2:], relu)
+    return _launch(CONV_KERNEL, "hfr_conv3x3", x, conv_weight_operand(weight), scale, shift,
+                   cout, x.shape[2:], relu)
+
+
+@_conv_op.register_fake
+def _conv_fake(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+               relu: bool) -> torch.Tensor:
+    one_device(x, weight, scale, shift)
+    return x.new_empty((x.shape[0], weight.shape[0], *x.shape[2:]))
 
 
 def conv3x3_affine_relu_plain(x, weight, scale, shift, relu: bool = True):
@@ -157,13 +178,32 @@ def convtranspose3x3_affine_relu(x: torch.Tensor, weight: torch.Tensor, scale: t
       weight of `layers.ConvTransposeBNRelu`; scale, shift (Cout,).
     Returns: (B, Cout, 2H, 2W).
     """
+    _check(x, weight, scale, shift, cin_dim=0)
+    return torch.ops.hfr.convtranspose3x3_affine_relu(x, weight, scale, shift, relu)
+
+
+@torch.library.custom_op("hfr::convtranspose3x3_affine_relu", mutates_args=(),
+                         device_types="cpu")
+def _convt_op(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+              relu: bool) -> torch.Tensor:
+    return convtranspose3x3_affine_relu_plain(x, weight, scale, shift, relu)
+
+
+@_convt_op.register_kernel("cuda")
+def _convt_cuda(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                relu: bool) -> torch.Tensor:
+    one_device(x, weight, scale, shift)
     cout = _check(x, weight, scale, shift, cin_dim=0)
-    if not use_kernel(x, weight, scale, shift):
-        return convtranspose3x3_affine_relu_plain(x, weight, scale, shift, relu)
-    wt = convt_weight_operand(weight)
     h, w = x.shape[2:]
-    return _launch(CONVT_KERNEL, "hfr_convt3x3", x, wt, scale, shift, cout,
-                   (2 * h, 2 * w), relu)
+    return _launch(CONVT_KERNEL, "hfr_convt3x3", x, convt_weight_operand(weight), scale, shift,
+                   cout, (2 * h, 2 * w), relu)
+
+
+@_convt_op.register_fake
+def _convt_fake(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                relu: bool) -> torch.Tensor:
+    one_device(x, weight, scale, shift)
+    return x.new_empty((x.shape[0], weight.shape[1], 2 * x.shape[2], 2 * x.shape[3]))
 
 
 def convtranspose3x3_affine_relu_plain(x, weight, scale, shift, relu: bool = True):

@@ -8,9 +8,10 @@ index 0 everywhere and non_empty_box_mask False.
 
 The feature rows are gathered by `crop_gather` when the caller asks for it
 (`crop_kernel=True`, the port's counterpart of the JAX package's
-`HFR_PALLAS_CROP=1`, off by default there too): on CUDA tensors it launches
-the kernel of `csrc/crop.cu`, on CPU tensors it runs the plain indexing
-gather `crop_gather_plain`, which is also what runs with the switch off.
+`HFR_PALLAS_CROP=1`, off by default there too), through the custom op
+`hfr::crop_gather`: on CUDA tensors it launches the kernel of
+`csrc/crop.cu`, on CPU tensors it runs the plain indexing gather
+`crop_gather_plain`, which is also what runs with the switch off.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from heterofusionrcnn_torch.core.geometry import points_in_box_3d
-from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, pointers, use_kernel
+from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, one_device, pointers
 
 CROP_KERNEL = CudaKernel("crop.cu", {"hfr_crop_gather": [P, P, P, P, I, I, I, I]}, exact=False)
 
@@ -33,8 +34,23 @@ def crop_gather(src: torch.Tensor, idx: torch.Tensor, box_ind: torch.Tensor) -> 
       C % 4 == 0 and a 16-byte aligned `src` (whole float4 rows).
     Returns: (Nb, R, C).
     """
-    if not use_kernel(src, idx, box_ind):
-        return crop_gather_plain(src, idx, box_ind)
+    return torch.ops.hfr.crop_gather(src, idx, box_ind)
+
+
+@torch.library.custom_op("hfr::crop_gather", mutates_args=(), device_types="cpu")
+def _crop_op(src: torch.Tensor, idx: torch.Tensor, box_ind: torch.Tensor) -> torch.Tensor:
+    return crop_gather_plain(src, idx, box_ind)
+
+
+@_crop_op.register_fake
+def _crop_fake(src: torch.Tensor, idx: torch.Tensor, box_ind: torch.Tensor) -> torch.Tensor:
+    one_device(src, idx, box_ind)
+    return src.new_empty((*idx.shape, src.shape[2]))
+
+
+@_crop_op.register_kernel("cuda")
+def _crop_cuda(src: torch.Tensor, idx: torch.Tensor, box_ind: torch.Tensor) -> torch.Tensor:
+    one_device(src, idx, box_ind)
     b, n, c = src.shape
     nb, rows = idx.shape
     if src.dtype != torch.float32 or c % 4:

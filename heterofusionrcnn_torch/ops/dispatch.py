@@ -1,10 +1,14 @@
 """Device dispatch and the build of the hand-written CUDA kernels.
 
-Every op that has a kernel asks `use_kernel(...)` with its input tensors:
-CUDA tensors launch the kernel, CPU tensors run the plain PyTorch version
-that sits beside the kernel's wrapper. There is no switch that forces the
-plain version onto the card and no `try` that falls back to it: a kernel
-that does not build or launch raises.
+Every kernel is reached through a PyTorch custom op of the namespace
+`hfr` (`torch.ops.hfr.*`, registered by the op modules beside their
+wrappers; importing `heterofusionrcnn_torch.ops.library` registers them
+all). Each op has two implementations, chosen by the dispatcher's device
+key: on CUDA tensors the kernel's launch, on CPU tensors the plain PyTorch
+version that sits beside it; and a fake (shape) function, through which
+`torch.export` traces it. There is no switch that forces the plain version
+onto the card and no `try` that falls back to it: a kernel that does not
+build or launch raises, and so do inputs on two devices (`one_device`).
 
 Each `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into its own
 shared library with a plain C interface, loaded with `ctypes`, at first use
@@ -46,19 +50,15 @@ F = ctypes.c_float
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
-def use_kernel(*tensors: torch.Tensor) -> bool:
-    """True for CUDA inputs (launch the kernel), False for CPU inputs (plain
-    PyTorch version). Inputs must share one device; any other device
-    type raises."""
-    dev = tensors[0].device
-    for t in tensors[1:]:
-        if t.device != dev:
-            raise ValueError(f"inputs on {dev} and {t.device}")
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"no kernel or plain version for device {dev}")
+def one_device(*tensors: Optional[torch.Tensor]) -> torch.device:
+    """The one device of the given tensors (None entries aside); raises
+    for inputs on two devices. The ops' implementations call it: the
+    dispatcher picks the CUDA implementation when any input is on the
+    card, and a kernel must not be handed a host pointer."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on {sorted(map(str, devs))}")
+    return devs.pop()
 
 
 def _nvcc() -> str:

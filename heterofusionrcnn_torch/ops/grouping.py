@@ -1,27 +1,28 @@
 """Exact k-nearest neighbours and neighbourhood gathers.
 
 Port of heterofusionrcnn_tpu/ops/grouping.py (`knn_point`, `group_point`).
-`knn_point` launches the CUDA kernels of `csrc/knn.cu` on CUDA tensors and
-runs `knn_point_plain` on CPU tensors. Both use the direct squared distance
-(q - c)^2 rounded term by term and order neighbours by (distance, index):
-the semantics of the TPU kernel and of its jnp mirror
-`pallas_knn._knn_reference_jnp`, not the matmul-expanded distance that the
-JAX package's CPU path uses.
+`knn_point` calls the custom op `hfr::knn`: on CUDA tensors it launches
+the kernels of `csrc/knn.cu`, on CPU tensors it runs `knn_point_plain`.
+Both use the direct squared distance (q - c)^2 rounded term by term and
+order neighbours by (distance, index): the semantics of the TPU kernel and
+of its jnp mirror `pallas_knn._knn_reference_jnp`, not the matmul-expanded
+distance that the JAX package's CPU path uses.
 
-On the card the kernel has two arms (`knn_arm`): a brute scan for small
-sets, and for large ones a sorted arm that Morton-sorts the points and cuts
-the candidates into tiles with boxes (`knn_prep`, one kernel), then skips
-every tile whose box lies farther than its queries' k-th distances. Both
-give the plain version's indices and distances bit for bit.
+On the card the kernel has two arms (`knn_arm`, chosen inside the op): a
+brute scan for small sets, and for large ones a sorted arm that
+Morton-sorts the points and cuts the candidates into tiles with boxes
+(`knn_prep`, one kernel), then skips every tile whose box lies farther
+than its queries' k-th distances. Both give the plain version's indices
+and distances bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, pointers, use_kernel
+from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, one_device, pointers
 
 # One launch count per KNN: the brute kernel or the sorted arm's search.
 KNN_KERNEL = CudaKernel(
@@ -64,23 +65,42 @@ def knn_point(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor, arm: Optional[st
 
     Args:
       xyz: (B, N, 3) candidates; new_xyz: (B, P, 3) queries; k <= min(16, N).
-        `new_xyz is xyz` (the same object) lets the sorted arm sort once.
+        `new_xyz is xyz` (the same object) lets the sorted arm sort once;
+        the op takes that choice as its argument `same_set`, so a traced
+        graph keeps it.
       arm: None (the main path: `knn_arm` picks it from the shape), or
         "brute" / "sorted" to force one arm on the card (tests and
         measurements). The CPU always runs the plain version.
     Returns:
       dists (B, P, k) ascending squared distances, idx (B, P, k) int32.
     """
-    b, n, _ = xyz.shape
-    p = new_xyz.shape[1]
+    n = xyz.shape[1]
     if not 1 <= k <= min(16, n):
         raise ValueError(f"knn needs 1 <= k <= min(16, N), got k={k} N={n}")
     if arm not in (None, "brute", "sorted"):
         raise ValueError(f"unknown knn arm {arm!r}")
-    if not use_kernel(xyz, new_xyz):
-        return knn_point_plain(k, xyz, new_xyz)
+    return torch.ops.hfr.knn(xyz, new_xyz, k, new_xyz is xyz, arm)
+
+
+@torch.library.custom_op("hfr::knn", mutates_args=(), device_types="cpu")
+def _knn_op(xyz: torch.Tensor, new_xyz: torch.Tensor, k: int, same_set: bool,
+            arm: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    return knn_point_plain(k, xyz, new_xyz)
+
+
+@_knn_op.register_kernel("cuda")
+def _knn_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor, k: int, same_set: bool,
+              arm: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    one_device(xyz, new_xyz)
     if xyz.dtype != torch.float32 or new_xyz.dtype != torch.float32:
         raise ValueError("knn kernel takes float32 points")
+    if same_set:
+        if new_xyz.shape != xyz.shape:
+            raise ValueError(f"same_set with sets of shapes {tuple(xyz.shape)} and "
+                             f"{tuple(new_xyz.shape)}")
+        new_xyz = xyz
+    b, n, _ = xyz.shape
+    p = new_xyz.shape[1]
     if (arm or knn_arm(n, p)) == "sorted":
         return knn_sorted(k, xyz, new_xyz)
     xyz = xyz.contiguous()
@@ -92,11 +112,19 @@ def knn_point(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor, arm: Optional[st
     return dist, idx
 
 
+@_knn_op.register_fake
+def _knn_fake(xyz: torch.Tensor, new_xyz: torch.Tensor, k: int, same_set: bool,
+              arm: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    one_device(xyz, new_xyz)
+    shape = (new_xyz.shape[0], new_xyz.shape[1], k)
+    return new_xyz.new_empty(shape), new_xyz.new_empty(shape, dtype=torch.int32)
+
+
 def _results(b: int, p: int, k: int, device: torch.device):
-    """Empty (B, P, k) float32 distances and int32 indices, in one
-    allocation (the small calls' time is mostly the host's)."""
-    out = torch.empty((2, b, p, k), dtype=torch.int32, device=device)
-    return out[0].view(torch.float32), out[1]
+    """Empty (B, P, k) float32 distances and int32 indices (an op's
+    outputs may not share storage)."""
+    return (torch.empty((b, p, k), dtype=torch.float32, device=device),
+            torch.empty((b, p, k), dtype=torch.int32, device=device))
 
 
 def knn_point_plain(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
@@ -136,13 +164,13 @@ class KnnTiles(NamedTuple):
 
 def knn_prep(xyz: torch.Tensor, new_xyz: torch.Tensor) -> KnnTiles:
     """Keys, stable sort, float4 candidates and tile boxes of the sorted
-    arm: one launch of the prep kernel on CUDA tensors, `knn_prep_plain` on
-    CPU tensors. `new_xyz is xyz` (the same object) is the same set: the
-    queries are the sorted candidates."""
+    arm on CUDA tensors: one launch of the prep kernel (its plain version
+    is `knn_prep_plain`). `new_xyz is xyz` (the same object) is the same
+    set: the queries are the sorted candidates."""
     b, n, _ = xyz.shape
     p = new_xyz.shape[1]
-    if not use_kernel(xyz, new_xyz):
-        return knn_prep_plain(xyz, new_xyz)
+    if one_device(xyz, new_xyz).type != "cuda":
+        raise ValueError("knn_prep launches the prep kernel: it takes CUDA tensors")
     if max(n, p) > KNN_SORTED_MAX_POINTS:
         raise ValueError(f"knn prep sorts sets of up to {KNN_SORTED_MAX_POINTS} points, "
                          f"got N={n} P={p}")

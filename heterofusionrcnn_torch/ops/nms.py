@@ -2,10 +2,11 @@
 
 Port of heterofusionrcnn_tpu/ops/nms.py (`oriented_nms`,
 `oriented_nms_boxes_3d`). Where the JAX models vmap a one-frame NMS over
-the batch, these functions take the batch: on CUDA tensors every frame runs
-in one launch of the kernel of `csrc/nms.cu`, each frame on a thread-block
-cluster whose size `nms_plan` picks; on CPU tensors `oriented_nms_plain`
-runs.
+the batch, these functions take the batch, through the custom op
+`hfr::oriented_nms`: on CUDA tensors every frame runs in one launch of the
+kernel of `csrc/nms.cu`, each frame on a thread-block cluster whose size
+`nms_plan` picks on the card it runs on; on CPU tensors
+`oriented_nms_plain` runs.
 """
 
 from __future__ import annotations
@@ -24,9 +25,9 @@ from heterofusionrcnn_torch.ops.dispatch import (
     CudaKernel,
     cluster_plan,
     cluster_threads,
+    one_device,
     pointers,
     sm_count,
-    use_kernel,
 )
 
 NMS_KERNEL = CudaKernel(
@@ -60,11 +61,28 @@ def oriented_nms(
       keep_idx (B, max_keep) int32, -1 padded, in keep order (descending
       score, lowest index on ties); keep_valid (B, max_keep) bool.
     """
-    if use_kernel(bev_boxes, scores):
-        keep = _nms_kernel(bev_boxes, scores, iou_thresh, max_keep, valid_mask)
-    else:
-        keep = oriented_nms_plain(bev_boxes, scores, iou_thresh, max_keep, valid_mask)
+    keep = torch.ops.hfr.oriented_nms(bev_boxes, scores, float(iou_thresh), max_keep, valid_mask)
     return keep, keep >= 0
+
+
+@torch.library.custom_op("hfr::oriented_nms", mutates_args=(), device_types="cpu")
+def _nms_op(bev_boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float, max_keep: int,
+            valid_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    return oriented_nms_plain(bev_boxes, scores, iou_thresh, max_keep, valid_mask)
+
+
+@_nms_op.register_kernel("cuda")
+def _nms_cuda(bev_boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float, max_keep: int,
+              valid_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    one_device(bev_boxes, scores, valid_mask)
+    return _nms_kernel(bev_boxes, scores, iou_thresh, max_keep, valid_mask)
+
+
+@_nms_op.register_fake
+def _nms_fake(bev_boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float, max_keep: int,
+              valid_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    one_device(bev_boxes, scores, valid_mask)
+    return bev_boxes.new_empty((bev_boxes.shape[0], max_keep), dtype=torch.int32)
 
 
 def nms_plan(b: int, n: int, sms: int, fits) -> Tuple[int, int]:

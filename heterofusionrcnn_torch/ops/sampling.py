@@ -1,10 +1,11 @@
 """Farthest point sampling and point gathers.
 
 Port of heterofusionrcnn_tpu/ops/sampling.py (`farthest_point_sample`,
-`gather_point`). `farthest_point_sample` launches the CUDA kernel of
-`csrc/fps.cu` on CUDA tensors (each set on a thread-block cluster whose
-size `fps_plan` picks) and runs `farthest_point_sample_plain` on CPU
-tensors.
+`gather_point`). `farthest_point_sample` calls the custom op
+`hfr::farthest_point_sample`: on CUDA tensors it launches the kernel of
+`csrc/fps.cu` (each set on a thread-block cluster whose size `fps_plan`
+picks on the card it runs on), on CPU tensors it runs
+`farthest_point_sample_plain`.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ from heterofusionrcnn_torch.ops.dispatch import (
     cluster_threads,
     pointers,
     sm_count,
-    use_kernel,
 )
 
 FPS_KERNEL = CudaKernel(
@@ -39,9 +39,22 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Iterative max-min FPS: (B, N, 3) float32 -> (B, npoint) int32 indices.
     Slot 0 is point 0; each next slot is the point farthest (squared
     distance) from the picked set, the lowest index on ties."""
-    if not use_kernel(xyz):
-        return farthest_point_sample_plain(xyz, npoint)
+    return torch.ops.hfr.farthest_point_sample(xyz, npoint)
+
+
+@torch.library.custom_op("hfr::farthest_point_sample", mutates_args=(), device_types="cpu")
+def _fps_op(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    return farthest_point_sample_plain(xyz, npoint)
+
+
+@_fps_op.register_kernel("cuda")
+def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return _fps_kernel(xyz, npoint)
+
+
+@_fps_op.register_fake
+def _fps_fake(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)
 
 
 def fps_plan(b: int, n: int, sms: int, fits) -> Tuple[int, int]:

@@ -3,18 +3,22 @@
 Port of heterofusionrcnn_tpu/ops/pallas_xconv.py (`fused_xconv`): the whole
 XConv block after the KNN (neighbour gather, the two lift DenseBNs, the
 K x K X-transform, X applied to [lifted coords | neighbour features], the
-composed separable conv, ELU and the folded output BatchNorm). On CUDA
-tensors it launches the kernel of `csrc/xconv.cu`, which gathers the
-neighbours itself, keeps every (P, K, C) intermediate on chip and runs the
-separable conv on the tensor cores in 3xTF32; on CPU tensors
-`fused_xconv_plain` runs the same algebra with PyTorch ops.
+composed separable conv, ELU and the folded output BatchNorm), through the
+custom op `hfr::fused_xconv` (the weights flattened to a list of tensors
+in `XConvWeights`' field order). On CUDA tensors it launches the kernel of
+`csrc/xconv.cu`, which gathers the neighbours itself, keeps every
+(P, K, C) intermediate on chip and runs the separable conv on the tensor
+cores in 3xTF32; on CPU tensors `fused_xconv_plain` runs the same algebra
+with PyTorch ops.
 
 The kernel takes the composed weight Wc as its GEMM's B operand, arranged
 by `xconv_weight_operand` (8-channel chunks in the kernel's contraction
 order, split into two TF32 parts, cut into wgmma B tiles). `XConv` keeps
 it with its folded weights (`XConvWeights.wc_operand`) until a weight
 changes; weights built without it are arranged per call. `plan_xconv`
-chooses how many blocks split the contraction of the few-query layers.
+chooses, inside the op on the card it runs on, how many blocks split the
+contraction of the few-query layers; a split's partial sums go through
+`hfr::xconv_split_epilogue`.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 import torch.nn.functional as F_
 
 from heterofusionrcnn_torch.ops.conv import arrange_b
-from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, pointers, sm_count, use_kernel
+from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, one_device, pointers, sm_count
 from heterofusionrcnn_torch.ops.grouping import group_point
 
 XCONV_KERNEL = CudaKernel("xconv.cu", {"hfr_xconv": [P] * 24 + [I] * 11}, exact=False)
@@ -171,8 +175,20 @@ def fused_xconv(
     Returns:
       (B, P, D) float32.
     """
-    if not use_kernel(pts, qrs, idx):
-        return fused_xconv_plain(pts, fts, qrs, idx, w)
+    return torch.ops.hfr.fused_xconv(pts, fts, qrs, idx, [getattr(w, f.name) for f in fields(w)])
+
+
+@torch.library.custom_op("hfr::fused_xconv", mutates_args=(), device_types="cpu")
+def _xconv_op(pts: torch.Tensor, fts: Optional[torch.Tensor], qrs: torch.Tensor,
+              idx: torch.Tensor, weights: List[Optional[torch.Tensor]]) -> torch.Tensor:
+    return fused_xconv_plain(pts, fts, qrs, idx, XConvWeights(*weights))
+
+
+@_xconv_op.register_kernel("cuda")
+def _xconv_cuda(pts: torch.Tensor, fts: Optional[torch.Tensor], qrs: torch.Tensor,
+                idx: torch.Tensor, weights: List[Optional[torch.Tensor]]) -> torch.Tensor:
+    w = XConvWeights(*weights)
+    one_device(pts, fts, qrs, idx, *weights)
     b, n, _ = pts.shape
     _, p, k = idx.shape
     cf = w.w1.shape[1]
@@ -183,7 +199,7 @@ def fused_xconv(
                          f"got K={k} D={d} Cf={cf}")
     if w.wc.shape[1] != cf + cp:
         raise ValueError(f"weights for Cin={w.wc.shape[1]}, inputs give {cf + cp}")
-    for t in [pts, fts, qrs] + [getattr(w, f.name) for f in fields(w)]:
+    for t in [pts, fts, qrs] + weights:
         if t is not None and t.dtype != torch.float32:
             raise ValueError(f"xconv kernel takes float32, got {t.dtype}")
     nq = b * p
@@ -195,6 +211,14 @@ def fused_xconv(
     out = torch.empty((b, p, d), dtype=torch.float32, device=pts.device)
     _launch_xconv(pts, fts, qrs, idx, w, out, None, 1)
     return out
+
+
+@_xconv_op.register_fake
+def _xconv_fake(pts: torch.Tensor, fts: Optional[torch.Tensor], qrs: torch.Tensor,
+                idx: torch.Tensor, weights: List[Optional[torch.Tensor]]) -> torch.Tensor:
+    one_device(pts, fts, qrs, idx, *weights)
+    wc = XConvWeights(*weights).wc
+    return pts.new_empty((idx.shape[0], idx.shape[1], wc.shape[2]))
 
 
 def _launch_xconv(pts, fts, qrs, idx, w: XConvWeights, out, partial, splits: int) -> None:
@@ -221,9 +245,18 @@ def _launch_xconv(pts, fts, qrs, idx, w: XConvWeights, out, partial, splits: int
 def xconv_split_epilogue(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tensor) -> torch.Tensor:
     """BNc(ELU(sum of the splits)) of (S, M, D) partial sums -> (M, D): the
     second kernel of the split path on CUDA tensors (splits summed in
-    order), the plain version on CPU tensors."""
-    if not use_kernel(partial, sc, bc):
-        return xconv_split_epilogue_plain(partial, sc, bc)
+    order), the plain version on CPU tensors (`hfr::xconv_split_epilogue`)."""
+    return torch.ops.hfr.xconv_split_epilogue(partial, sc, bc)
+
+
+@torch.library.custom_op("hfr::xconv_split_epilogue", mutates_args=(), device_types="cpu")
+def _epilogue_op(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tensor) -> torch.Tensor:
+    return xconv_split_epilogue_plain(partial, sc, bc)
+
+
+@_epilogue_op.register_kernel("cuda")
+def _epilogue_cuda(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tensor) -> torch.Tensor:
+    one_device(partial, sc, bc)
     s, m, d = partial.shape
     if d % 4 or partial.dtype != torch.float32:
         raise ValueError(f"split epilogue takes float32 with D % 4 == 0, got D={d}")
@@ -234,6 +267,12 @@ def xconv_split_epilogue(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tens
         I(s), I(m), I(d),
     )
     return out
+
+
+@_epilogue_op.register_fake
+def _epilogue_fake(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tensor) -> torch.Tensor:
+    one_device(partial, sc, bc)
+    return partial.new_empty(partial.shape[1:])
 
 
 def xconv_split_epilogue_plain(partial, sc, bc) -> torch.Tensor:

@@ -1,9 +1,10 @@
-"""Checkpoint evaluator, the RPN side (PyTorch port of
-heterofusionrcnn_tpu/runtime/evaluator.py `RpnEvaluator`).
+"""Checkpoint evaluators (PyTorch port of
+heterofusionrcnn_tpu/runtime/evaluator.py `RpnEvaluator`, `RcnnEvaluator`,
+`evaluated_steps`, `repeated_checkpoint_run`).
 
-Runs a val or test epoch of the RPN for one checkpoint and writes the
-files the RCNN trains from, in the JAX evaluator's layout and formats,
-under <output_root>/<checkpoint_name>/predictions:
+`RpnEvaluator` runs a val or test epoch of the RPN for one checkpoint and
+writes the files the RCNN trains from, in the JAX evaluator's layout and
+formats, under <output_root>/<checkpoint_name>/predictions:
 
   proposals_and_scores/<split>/<step>/<sample>.txt  rows box + score, %.3f
   proposals_iou/<split>/<step>/<sample>.txt         (n, m_gt) 3D-IoU table
@@ -12,8 +13,20 @@ under <output_root>/<checkpoint_name>/predictions:
 
 and the ledgers rpn_avg_losses.csv, rpn_avg_seg_acc.csv and
 rpn_total_recall.csv beside them (plus a headed rpn_total_recall.csv under
-logs/). Losses are per sample (`rpn_loss` on one batch row at a time), so
-the ledgers do not depend on `eval_batch_size`. The forward runs under
+logs/).
+
+`RcnnEvaluator` runs the RCNN over a split's handoff files and writes
+
+  final_predictions_and_scores/<split>/<step>/<sample>.txt  rows box +
+      score + class, de-duplicated, by descending score, %.5f
+  kitti_native_eval/<threshold>/<step>/data/<sample>.txt    KITTI rows
+
+with, on a labelled split, the native evaluator's ap_summary.json at the
+standard and (results_05_iou/) the relaxed thresholds, the ledgers
+rcnn_avg_losses.csv and rcnn_avg_cls_acc.csv, and logs/rcnn_eval.csv.
+
+Losses and accuracies are per sample (one batch row at a time), so the
+ledgers do not depend on `eval_batch_size`. The forwards run under
 `torch.no_grad()` in eval mode: on the card the fused XConv kernel has no
 backward.
 """
@@ -21,19 +34,29 @@ backward.
 from __future__ import annotations
 
 import csv
+import json
 import os
 import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from heterofusionrcnn_torch.models.rpn import rpn_loss
+from heterofusionrcnn_torch.models.rcnn import rcnn_loss
+from heterofusionrcnn_torch.models.rpn import rpn_fts_channels, rpn_loss
+from heterofusionrcnn_torch.runtime.kitti_writer import save_predictions_in_kitti_format
+from heterofusionrcnn_torch.runtime.native_eval import run_kitti_native_eval
 from heterofusionrcnn_torch.runtime.train_state import RPN_BATCH_KEYS
 from heterofusionrcnn_torch.utils.metrics import compute_recall_iou
 
 # The val-mode predictions `rpn_loss` reads.
 _RPN_LOSS_KEYS = ("foreground_mask", "seg_softmax", "seg_gt_one_hot", "cls_preds", "cls_gts",
                   "reg_preds", "reg_gts")
+# The val-mode predictions `rcnn_loss` and the per-sample accuracy read.
+_RCNN_LOSS_KEYS = ("cls_logits", "cls_gt_one_hot", "pos_neg_cls_mask", "pos_reg_mask",
+                   "mb_cls_preds", "mb_cls_gts", "mb_reg_preds", "mb_reg_gts")
+# The predictions the RCNN's files read.
+_RCNN_HOST_KEYS = ("final_boxes", "final_scores", "final_classes", "num_boxes_before_padding")
 # The predictions the files and metrics read, where the mode has them.
 _HOST_KEYS = ("proposals", "proposal_scores", "num_proposals_before_padding", "proposal_iou3d",
               "proposal_iou2d", "seg_accuracy", "rpn_pts", "rpn_intensity", "foreground_mask",
@@ -109,12 +132,11 @@ def _time_stats(times):
     }
 
 
-def _row(tree, b):
-    """Batch row b of a tensor, or of each tensor of a tuple, kept as a
-    batch of one."""
+def _rows(tree, start, stop):
+    """Rows [start, stop) of a tensor, or of each tensor of a tuple."""
     if isinstance(tree, tuple):
-        return tuple(t[b:b + 1] for t in tree)
-    return tree[b:b + 1]
+        return tuple(t[start:stop] for t in tree)
+    return tree[start:stop]
 
 
 class RpnEvaluator:
@@ -155,8 +177,8 @@ class RpnEvaluator:
         if self._with_loss:
             per_sample = []
             for b in range(inputs[0].shape[0]):
-                loss_dict, total = rpn_loss({k: _row(preds[k], b) for k in _RPN_LOSS_KEYS},
-                                            self.cfg.model_config)
+                loss_dict, total = rpn_loss(
+                    {k: _rows(preds[k], b, b + 1) for k in _RPN_LOSS_KEYS}, self.cfg.model_config)
                 per_sample.append(dict(loss_dict, rpn_total_loss=total))
             losses = {k: torch.stack([d[k] for d in per_sample]).cpu().numpy()
                       for k in per_sample[0]}
@@ -323,3 +345,219 @@ class RpnEvaluator:
                 "%d, %.5f, %.5f, %.5f, %.5f, %.5f, %.5f",
             )
         return summary
+
+
+class RcnnEvaluator:
+    """Stage-2 evaluator: final predictions, KITTI-format conversion, AP.
+
+    `model`: an `RcnnModel` in "val" mode (a labelled split: losses and
+    classification accuracy) or "test" mode, on the device the evaluation
+    runs on; `dataset` has the handoff directories of the split set
+    (`proposal_dir`, `proposal_iou_dir`, `rpn_feature_dir`)."""
+
+    def __init__(self, model, dataset, pipeline_cfg, output_root: str,
+                 eval_batch_size: int = 1):
+        self.model = model
+        self.dataset = dataset
+        self.cfg = pipeline_cfg
+        self.eval_batch_size = max(int(eval_batch_size), 1)
+        name = pipeline_cfg.model_config.checkpoint_name
+        self.predictions_dir = os.path.join(output_root, name, "predictions")
+        self.logs_dir = os.path.join(output_root, name, "logs")
+        os.makedirs(self.predictions_dir, exist_ok=True)
+        os.makedirs(self.logs_dir, exist_ok=True)
+        self._with_loss = getattr(dataset, "has_labels", True) and (
+            getattr(model, "mode", "") == "val")
+
+    @torch.no_grad()
+    def _apply(self, batch):
+        """The model's forward on one host batch; returns the predictions
+        on the host, with the per-sample "cls_accuracy" (B,) in val mode,
+        and the per-sample losses ({name: (B,)}, or None). The RCNN
+        flattens batch x RoIs batch-major, so sample b's RoIs are rows
+        b * n .. (b + 1) * n of each loss input."""
+        model = self.model.eval()
+        device = next(model.parameters()).device
+        t = {k: torch.from_numpy(batch[k]).to(device) for k in (
+            "rpn_roi", "rpn_iou", "rpn_gt", "rpn_pts", "rpn_intensity", "rpn_fg_mask", "rpn_fts",
+            "image_input", "stereo_calib_p2")}
+        preds = model(t["rpn_roi"], t["rpn_pts"], t["rpn_intensity"], t["rpn_fg_mask"],
+                      t["rpn_fts"], t["image_input"], t["stereo_calib_p2"],
+                      proposals_iou=t["rpn_iou"], proposals_gt=t["rpn_gt"])
+        host = {k: preds[k].cpu().numpy() for k in _RCNN_HOST_KEYS}
+        if not self._with_loss:
+            return host, None
+        b, n = t["rpn_roi"].shape[:2]
+        per_sample, accs = [], []
+        for i in range(b):
+            rows = {k: _rows(preds[k], i * n, (i + 1) * n) for k in _RCNN_LOSS_KEYS}
+            loss_dict, total = rcnn_loss(rows, self.cfg.model_config)
+            per_sample.append(dict(loss_dict, rcnn_total_loss=total))
+            # The model's batch accuracy on one sample's rows (equal at B=1).
+            m = rows["pos_neg_cls_mask"].float()
+            hits = (rows["cls_logits"].argmax(-1) == rows["cls_gt_one_hot"].argmax(-1)).float()
+            accs.append((hits * m).sum() / m.sum().clamp(min=1))
+        host["cls_accuracy"] = torch.stack(accs).cpu().numpy()
+        losses = {k: torch.stack([d[k] for d in per_sample]).cpu().numpy()
+                  for k in per_sample[0]}
+        return host, losses
+
+    def run_checkpoint_once(self, state_dict, global_step, num_rois: int = 100) -> dict:
+        """Load `state_dict` into the model (None: keep its weights) and
+        evaluate it as checkpoint `global_step`, each frame's proposals
+        padded or cut to `num_rois`; returns the summary."""
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        ds = self.dataset
+        ic = self.cfg.model_config.input_config
+        final_dir = os.path.join(self.predictions_dir, "final_predictions_and_scores",
+                                 ds.data_split, str(global_step))
+        os.makedirs(final_dir, exist_ok=True)
+
+        infer_times = []
+        cls_accs = []
+        losses = {}
+
+        def _done(name):
+            return os.path.exists(os.path.join(final_dir, name + ".txt"))
+
+        for batch, names, valid in _iter_eval_batches(
+            ds,
+            self.eval_batch_size,
+            "rcnn",
+            _done,
+            img_w=ic.img_dims_w,
+            img_h=ic.img_dims_h,
+            num_rois=num_rois,
+            rpn_fts_channels=rpn_fts_channels(self.cfg.model_config),
+        ):
+            t0 = time.time()
+            preds, loss_host = self._apply(batch)
+            per_sample_time = (time.time() - t0) / len(valid)
+
+            for b in np.flatnonzero(valid):
+                infer_times.append(per_sample_time)
+                if loss_host is not None:
+                    for k, v in loss_host.items():
+                        losses.setdefault(k, []).append(float(v[b]))
+                    cls_accs.append(float(preds["cls_accuracy"][b]))
+
+                n_valid = int(preds["num_boxes_before_padding"][b])
+                boxes = preds["final_boxes"][b][:n_valid]
+                scores = preds["final_scores"][b][:n_valid]
+                types = preds["final_classes"][b][:n_valid]
+                # Dedup (NMS padding may duplicate boxes; reference
+                # save_rcnn_predicted_boxes_3d_and_scores :1104-1108).
+                boxes, uniq = np.unique(boxes, axis=0, return_index=True)
+                scores = scores[uniq]
+                types = types[uniq]
+                order = np.argsort(-scores)
+                rows = np.column_stack([boxes, scores, types])[order]
+                np.savetxt(os.path.join(final_dir, names[b] + ".txt"), rows, fmt="%.5f")
+
+        kitti_dir = save_predictions_in_kitti_format(
+            ds, self.predictions_dir, self.cfg.eval_config.kitti_score_threshold, global_step)
+        tstats = _time_stats(infer_times)
+        summary = {
+            "global_step": int(global_step),
+            "avg_cls_acc": float(np.mean(cls_accs)) if cls_accs else 0.0,
+            "avg_inference_time": tstats["mean"],
+            "inference_time_stats": tstats,
+            "kitti_predictions_dir": kitti_dir,
+        }
+        print(
+            "Inference time: Min: {min:.5f} Max: {max:.5f} Mean: {mean:.5f} "
+            "Median: {median:.5f}".format(**tstats)
+        )
+
+        # Reference-format per-checkpoint ledgers (evaluator.py:766-797).
+        if losses:
+            n_samp = max(len(losses["rcnn_total_loss"]), 1)
+            avg = {k: sum(v) / n_samp for k, v in losses.items()}
+            summary["avg_losses"] = avg
+            _append_ledger_row(
+                os.path.join(self.predictions_dir, "rcnn_avg_losses.csv"),
+                [global_step, avg["rcnn_cls_loss"], avg["rcnn_bin_cls_loss"],
+                 avg["rcnn_reg_loss"], avg["rcnn_total_loss"]],
+                "%d, %.5f, %.5f, %.5f, %.5f",
+            )
+            print(
+                "Step {}: Average RCNN Losses: cls {:.5f}, bin_cls {:.5f}, "
+                "reg {:.5f}, total {:.5f}".format(
+                    global_step, avg["rcnn_cls_loss"], avg["rcnn_bin_cls_loss"],
+                    avg["rcnn_reg_loss"], avg["rcnn_total_loss"],
+                )
+            )
+        if cls_accs:
+            _append_ledger_row(
+                os.path.join(self.predictions_dir, "rcnn_avg_cls_acc.csv"),
+                [global_step, summary["avg_cls_acc"]],
+                "%d, %.5f",
+            )
+
+        # Offline AP through the native evaluator, at the standard and at
+        # the relaxed (0.5 / 0.25 BEV and 3D) thresholds (reference
+        # evaluator.py:1152-1192).
+        if ds.has_labels:
+            for key, out_dir, low_iou in (
+                ("ap", os.path.dirname(kitti_dir), False),
+                ("ap_05_iou", os.path.join(os.path.dirname(kitti_dir), "results_05_iou"), True),
+            ):
+                aps = run_kitti_native_eval(ds.label_dir, kitti_dir, out_dir, low_iou=low_iou)
+                with open(os.path.join(out_dir, "ap_summary.json"), "w") as f:
+                    json.dump({k: list(v) for k, v in aps.items()}, f, indent=2)
+                summary[key] = aps
+        _append_csv(
+            os.path.join(self.logs_dir, "rcnn_eval.csv"),
+            ["global_step", "avg_cls_acc", "avg_inference_time"],
+            [summary["global_step"], summary["avg_cls_acc"], summary["avg_inference_time"]],
+        )
+        return summary
+
+
+def evaluated_steps(logs_dir: str, csv_name: str):
+    """Steps already present in the headed metrics ledger `csv_name` under
+    `logs_dir` (the reference's skip_evaluated_checkpoints,
+    evaluator.py:835-872)."""
+    path = os.path.join(logs_dir, csv_name)
+    if not os.path.exists(path):
+        return set()
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    return {int(float(r[0])) for r in rows[1:] if r}
+
+
+def repeated_checkpoint_run(
+    evaluator,
+    ckpt_manager,
+    make_state: Callable[[int], dict],
+    csv_name: str,
+    interval_secs: float = 30.0,
+    max_wait_secs: float = 3600.0,
+    stop_at_step: Optional[int] = None,
+    **eval_kwargs,
+):
+    """Watch the checkpoint directory, evaluating each new step once
+    (evaluator.py:435-502): `evaluator.run_checkpoint_once(make_state(step),
+    step, **eval_kwargs)` for every step not yet in the ledger `csv_name`,
+    then a wait of `interval_secs`; returns once `stop_at_step` is
+    evaluated, or after `max_wait_secs` without a new checkpoint.
+
+    Unlike the JAX package's watcher, which drops them, `eval_kwargs` (the
+    RCNN's `num_rois`) reach every evaluation, as they reach the one-shot
+    path."""
+    waited = 0.0
+    while True:
+        done = evaluated_steps(evaluator.logs_dir, csv_name)
+        todo = [s for s in ckpt_manager.all_steps() if s not in done]
+        for step in todo:
+            evaluator.run_checkpoint_once(make_state(step), step, **eval_kwargs)
+        if todo:
+            waited = 0.0
+        if stop_at_step is not None and stop_at_step in evaluated_steps(
+                evaluator.logs_dir, csv_name):
+            return
+        waited += interval_secs
+        if waited > max_wait_secs:
+            return
+        time.sleep(interval_secs)

@@ -196,9 +196,19 @@ def test_crop_and_resize():
 
 
 def test_dispatch_by_device():
-    cpu = torch.zeros(2)
-    assert dispatch.use_kernel(cpu) is False
+    """The op's device key picks the implementation: a CPU tensor runs the
+    plain version, a meta tensor only the fake (shape) function, and
+    inputs on two devices raise."""
+    from heterofusionrcnn_torch.ops import sampling
+
+    xyz = torch.from_numpy(np.random.default_rng(0).uniform(-5, 5, (2, 40, 3)).astype(np.float32))
+    assert torch.equal(sampling.farthest_point_sample(xyz, 8),
+                       sampling.farthest_point_sample_plain(xyz, 8))
+    meta = sampling.farthest_point_sample(xyz.to("meta"), 8)
+    assert meta.device.type == "meta" and meta.shape == (2, 8) and meta.dtype == torch.int32
+    assert dispatch.one_device(xyz, None) == torch.device("cpu")
     with pytest.raises(ValueError):
-        dispatch.use_kernel(torch.zeros(2, device="meta"))
+        dispatch.one_device(xyz, torch.zeros(2, device="meta"))
     with pytest.raises(ValueError):
-        dispatch.use_kernel(cpu, torch.zeros(2, device="meta"))
+        torch.ops.hfr.crop_gather(torch.zeros(1, 4, 4), torch.zeros(1, 2, dtype=torch.int32),
+                                  torch.zeros(1, dtype=torch.int32, device="meta"))

@@ -806,3 +806,122 @@ def test_xconv_eval_with_grad_launches_or_raises(cuda):
     mod.requires_grad_(False)
     mod(pts, fts, qrs)
     assert XCONV_KERNEL.launches == before + 2
+
+
+# The custom ops (`torch.ops.hfr`, ops/library.py): each one on CUDA tensors
+# launches its kernel, on the same inputs on the CPU runs its plain version;
+# the two agree within the kernel's tolerance (module docstring). Inputs on
+# two devices raise.
+
+
+def _op_case(name, cuda):
+    """(args on the card, the kernel counters that must rise, tolerance)."""
+    rng = np.random.default_rng(12)
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+    if name in ("knn", "knn_sorted"):
+        xyz = torch.from_numpy(_points(rng, 2, 5000, False)).to(cuda)
+        if name == "knn_sorted":
+            return (xyz, xyz, 8, True, "sorted"), (grouping.KNN_KERNEL,
+                                                   grouping.KNN_PREP_KERNEL), 0.0
+        return (xyz, xyz, 8, True, "brute"), (grouping.KNN_KERNEL,), 0.0
+    if name == "farthest_point_sample":
+        return (f32(2, 3000, 3), 256), (sampling.FPS_KERNEL,), 0.0
+    if name == "oriented_nms":
+        bev = torch.from_numpy(_bev_boxes(rng, 2, 500)).to(cuda)
+        return (bev, f32(2, 500), 0.5, 50, f32(2, 500) > -0.5), (nms_ops.NMS_KERNEL,), 0.0
+    if name == "fused_xconv":
+        w = _torch_weights(_xconv_params(rng, 8, 64, 64 + 8, 2, 256), True)
+        ws = [None if getattr(w, f) is None else getattr(w, f).to(cuda)
+              for f in w.__dataclass_fields__]
+        idx = torch.from_numpy(rng.integers(0, 300, (2, 100, 8)).astype(np.int32)).to(cuda)
+        from heterofusionrcnn_torch.ops.xconv import XCONV_KERNEL
+        return (f32(2, 300, 3), f32(2, 300, 8), f32(2, 100, 3), idx, ws), (XCONV_KERNEL,), 1e-4
+    if name == "xconv_split_epilogue":
+        return (f32(4, 300, 256), f32(256), f32(256)), (XCONV_EPILOGUE_KERNEL,), 1e-4
+    if name == "crop_gather":
+        idx = torch.from_numpy(rng.integers(0, 400, (10, 64)).astype(np.int32)).to(cuda)
+        box_ind = torch.from_numpy(np.sort(rng.integers(0, 2, 10)).astype(np.int32)).to(cuda)
+        from heterofusionrcnn_torch.ops.cropping import CROP_KERNEL
+        return (f32(2, 400, 36), idx, box_ind), (CROP_KERNEL,), 0.0
+    from heterofusionrcnn_torch.ops.conv import CONV_KERNEL, CONVT_KERNEL
+    transpose = name.startswith("convtranspose")
+    args = _conv_case(rng, cuda, 2, 40, 20, 15, 21, transpose)
+    return (*args, True), (CONVT_KERNEL if transpose else CONV_KERNEL,), 1e-4
+
+
+def _to(a, device):
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    if isinstance(a, (list, tuple)):
+        return [_to(t, device) for t in a]
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["knn", "knn_sorted", "farthest_point_sample", "oriented_nms",
+                                  "fused_xconv", "xconv_split_epilogue", "crop_gather",
+                                  "conv3x3_affine_relu", "convtranspose3x3_affine_relu"])
+def test_custom_ops_dispatch_by_device(cuda, name):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, counters, tol = _op_case(name, cuda)
+    op = getattr(torch.ops.hfr, name.replace("_sorted", ""))
+    before = [k.launches for k in counters]
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [1] * len(counters)
+    want = op(*_to(args, "cpu"))
+    assert [k.launches - b for k, b in zip(counters, before)] == [1] * len(counters)
+    for g, w in zip(*((t if isinstance(t, tuple) else (t,)) for t in (got, want))):
+        assert g.is_cuda and not w.is_cuda and g.dtype == w.dtype and g.shape == w.shape
+        g = g.cpu()
+        if tol:
+            assert bool(((g - w).abs() <= tol + tol * w.abs()).all()), float((g - w).abs().max())
+        else:
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    if name != "farthest_point_sample":  # one tensor
+        mixed = _to(args, "cpu")
+        mixed[1] = _to(args[1], cuda)
+        with pytest.raises(ValueError, match="inputs on"):
+            op(*mixed)
+
+
+@pytest.mark.cuda
+def test_export_roundtrip_on_card(cuda, tmp_path):
+    """The `*_unittest` two-stage detector, both switches on, exported on
+    the card and loaded: on a batch of another seed equal to the eager
+    forward (kept boxes within 1e-4 + 1e-4 |eager|, classes, valid flags
+    and counts exact), launching each kernel as often as the eager
+    forward; refused for the CPU."""
+    from heterofusionrcnn_torch.configs.presets import rcnn_unittest, rpn_unittest
+    from heterofusionrcnn_torch.inference import build_two_stage, random_batch
+    from heterofusionrcnn_torch.runtime.export import export_fused_inference, load_exported
+    from heterofusionrcnn_torch.ops import conv, cropping, xconv
+
+    det, inputs = build_two_stage(2, 3, "cuda", rpn_unittest(), rcnn_unittest(),
+                                  conv_kernels=True, crop_kernel=True)
+    path = str(tmp_path / "two_stage.pt2")
+    export_fused_inference(det, *inputs, path)
+    loaded = load_exported(path)
+    host = random_batch(rpn_unittest(), 2, 8)
+    new = [torch.from_numpy(host[k]).to(cuda)
+           for k in ("point_cloud", "image_input", "stereo_calib_p2")]
+    kernels = [grouping.KNN_KERNEL, grouping.KNN_PREP_KERNEL, sampling.FPS_KERNEL,
+               nms_ops.NMS_KERNEL, xconv.XCONV_KERNEL, XCONV_EPILOGUE_KERNEL,
+               conv.CONV_KERNEL, conv.CONVT_KERNEL, cropping.CROP_KERNEL]
+    counts = []
+    outs = []
+    for fn in (loaded, det):
+        before = [k.launches for k in kernels]
+        outs.append(fn(*new))
+        torch.cuda.synchronize()
+        counts.append([k.launches - b for k, b in zip(kernels, before)])
+    assert counts[0] == counts[1] and all(counts[0][i] for i in (0, 2, 3, 4, 6, 7, 8))
+    got, want = outs
+    for key in ("proposals", "proposal_scores", "final_boxes", "final_scores"):
+        assert bool(((got[key] - want[key]).abs() <= 1e-4 + 1e-4 * want[key].abs()).all()), key
+    for key in ("final_classes", "final_valid", "num_final"):
+        assert torch.equal(got[key], want[key]), key
+    assert not torch.allclose(loaded(*inputs)["proposals"], got["proposals"])
+    with pytest.raises(ValueError, match="not on 'cpu'"):
+        load_exported(path, device="cpu")

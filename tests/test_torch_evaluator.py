@@ -10,7 +10,8 @@
 - `run_evaluation --save_rpn_feature --for_rcnn_train` after one RPN
   train step, then `run_training --pipeline_config rcnn_unittest
   --warm_start_from ... --proposal_dir ...`: 3 steps, a resume to 4.
-- The options that are not ported, or not given, raise.
+- The options that are not given raise: the RCNN's training and
+  evaluation without the handoff directories.
 
 Weights are flax variables drawn from a seed (tests/test_torch_layers.py),
 carried into the port by `heterofusionrcnn_torch.convert`; the proposal
@@ -221,9 +222,10 @@ def test_two_stage_training_clis(tmp_path, capsys):
     ("train", ["--pipeline_config", "rcnn_unittest"], ValueError, "--proposal_dir"),
     ("train", ["--pipeline_config", "rcnn_unittest", "--proposal_dir", "p",
                "--proposal_iou_dir", "i"], ValueError, "--rpn_feature_dir"),
-    ("eval", ["--pipeline_config", "rcnn_unittest"], NotImplementedError, "RcnnEvaluator"),
-    ("eval", ["--pipeline_config", "rpn_unittest", "--evaluate_repeatedly"],
-     NotImplementedError, "repeated_checkpoint_run"),
+    ("eval", ["--pipeline_config", "rcnn_unittest", "--proposal_iou_dir", "i",
+              "--rpn_feature_dir", "f"], ValueError, "--proposal_dir"),
+    ("eval", ["--pipeline_config", "rcnn_unittest", "--evaluate_repeatedly", "--proposal_dir",
+              "p", "--proposal_iou_dir", "i"], ValueError, "--rpn_feature_dir"),
 ])
 def test_unported_or_missing_options_raise(tmp_path, cli, argv, exc, match):
     main = run_training.main if cli == "train" else run_evaluation.main
