@@ -146,6 +146,38 @@
    profiler, one forward) equal to step 4's counted switches-on forward's,
    the KNN's sorted and brute arms apart. Prints the export time, the
    artifact's size and the loaded forward's ms per batch beside the eager.
+12. The bf16 serving path (`bf16_phase`): the same detector, weights and
+   inputs as step 3 built with `build_two_stage(compute_dtype="bfloat16")`
+   (float32 weights, the layers in bf16, the heads float32), switches off
+   and on. Each forward is counted: KNN, its prep, FPS and NMS as step 3's,
+   the bf16 XConv (`xconv_bf16`, and `xconv_epilogue_bf16` for split
+   layers) with the switches off, plus 13 `conv_bf16`, 3 `convt_bf16` and
+   1 `crop_bf16` with them on, and no float32 XConv, conv, transposed conv
+   or crop. Each bf16 forward is timed with CUDA events in turns against
+   the float32 forward with the same switches (float32, bf16, bf16,
+   float32) and profiled once (device time by kernel name, busy share).
+   Every call of the switches-on bf16 forward is held against its plain
+   version: KNN, FPS and NMS bit-exact, the crop bit-exact, the XConv,
+   split epilogue, conv and transposed conv within BF16_RTOL |plain| +
+   BF16_ATOL_SHARE max |plain| (the worst error in bf16 ulps and the share
+   of elements not bit-equal printed); each is timed beside its plain
+   version and a library yardstick (bf16 torch.matmul of the XConv's
+   composed product, cuDNN bf16 conv2d / conv_transpose2d, bf16
+   index_select) and bounded at the bf16 tensor-core rate (989 TFLOP/s) or
+   3.35 TB/s (rows *_bf16 of the kernels line). The outputs are checked as
+   in step 6; the bf16 RPN's segmentation logits must lie within
+   SEG_LOGIT_BOUND of the float32 RPN's, and the share of the float32
+   forward's final boxes matched by a bf16 box at BEV IoU >= 0.7 is
+   printed beside the share matched by the float32 detector with every
+   weight moved by 2^-8 N(0, 1) (random weights make the final selection
+   chaotic: the yardstick says how much of the miss bf16 alone explains);
+   the `*_unittest` detector in bf16 on the card must agree with
+   its CPU run before any top-k (switches off and on). Then one
+   `run_evaluation` of the RCNN in process over step 10's handoff from a
+   pipeline config with `compute_dtype` "bfloat16" (step 9's float32
+   checkpoint), batch 1, `--num_rois 100`: per forward KNN 4, FPS 3, bf16
+   XConv 4, NMS 1 (plus split epilogues), nothing else; its files checked
+   as in step 10 and its ms per frame printed.
 
 Prints a {"kernels": [...]} JSON line, then the result as its last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -376,10 +408,15 @@ def check_xconv(pts, fts, qrs, idx, w):
     return float(err.max())
 
 
-def check_epilogue(partial, sc, bc):
-    """The split epilogue against its plain version, within the XConv's gate."""
+def check_epilogue(partial, sc, bc, out_dtype=None):
+    """The float32 split epilogue against its plain version, within the
+    XConv's gate (`out_dtype`: the op's argument, float32 here)."""
+    import torch
+
     from heterofusionrcnn_torch.ops import xconv
 
+    if out_dtype not in (None, torch.float32):
+        raise AssertionError(f"a {out_dtype} split epilogue on the float32 path")
     got = xconv.xconv_split_epilogue(partial, sc, bc)
     want = xconv.xconv_split_epilogue_plain(partial, sc, bc)
     err = (got - want).abs()
@@ -688,8 +725,8 @@ def epilogue_row(rows, calls, reps, suffix=""):
     # output written once; ELU and the affine on each output.
     r = new_row(rows, "xconv_epilogue" + suffix, "heterofusionrcnn_torch/ops/csrc/xconv.cu",
                 "xconv_epilogue")
-    for (partial, sc, bc), _ in calls["xconv_split_epilogue"]:
-        r["max_abs_err"] = max(r["max_abs_err"], check_epilogue(partial, sc, bc))
+    for (partial, sc, bc, *out_dtype), _ in calls["xconv_split_epilogue"]:
+        r["max_abs_err"] = max(r["max_abs_err"], check_epilogue(partial, sc, bc, *out_dtype))
         ms = cuda_ms(lambda: xconv.xconv_split_epilogue(partial, sc, bc), reps)
         pms = cuda_ms(lambda: xconv.xconv_split_epilogue_plain(partial, sc, bc), reps)
         s_, m, d = partial.shape
@@ -1810,6 +1847,7 @@ def rcnn_eval_phase(kernels, out_root):
     if not report["launches_per_forward"]["xconv_epilogue"]:
         del rows["xconv_epilogue_rcnn_eval"]
     report["xconv_max_abs_err"] = rows["xconv_rcnn_eval"]["max_abs_err"]
+    report["handoff"] = dict(dirs=dirs, ckpts=ckpts)  # step 12's bf16 evaluation reads them
     finish_rows(rows)
     del first
     torch.cuda.empty_cache()
@@ -1971,6 +2009,424 @@ def export_phase(out_root, launches_on):
     return report
 
 
+# Step 12, the bf16 serving path: the detector with `compute_dtype`
+# "bfloat16" (float32 weights, the layers in bf16, the heads float32).
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 on the tensor cores
+# bf16 kernel vs its plain bf16 version: 2^-7 |plain| (two bf16 ulps where
+# the spacing is finest, one where it is coarsest: a float32 sum in another
+# order rounds to the neighbouring value) plus 2^-8 of the call's largest
+# |plain| (one ulp there: an intermediate rounding that flips ahead of a
+# shift that cancels the result to about 0). As tests/test_torch_cuda.py.
+BF16_RTOL = 2.0 ** -7
+BF16_ATOL_SHARE = 2.0 ** -8
+# The bf16 RPN's segmentation logits against the float32 RPN's on the same
+# weights: within 5% of the float32 logits' largest magnitude (the
+# `*_unittest` detector with randomized BatchNorm measured 0.75% and 1.1% at
+# seeds 0 and 1 on the CPU; bf16 keeps 8 significant bits, 2^-9 relative a
+# rounding, over ~20 rounded layers and wider sums at full width).
+SEG_LOGIT_BOUND = 0.05
+# bf16 card run vs CPU run at `*_unittest` width, before any top-k (the
+# stage-1 features and scores): 2^-6 |cpu| + 1% of the tensor's largest
+# magnitude, tests/test_torch_bf16.py's model tolerance (the kernels and the
+# CPU's plain versions round to neighbouring bf16 values now and then, and
+# the differences travel through the stacked layers).
+BF16_MODEL_RTOL, BF16_MODEL_SCALE_SHARE = 2.0 ** -6, 0.01
+BF16_SWITCHED = {"conv_bf16": 13, "convt_bf16": 3, "crop_bf16": 1}
+BF16_OPS = ("knn_point", "farthest_point_sample", "oriented_nms", "fused_xconv",
+            "xconv_split_epilogue", "crop_gather", "conv3x3_affine_relu",
+            "convtranspose3x3_affine_relu")
+
+
+def bf16_compare(got, want, name):
+    """A bf16 kernel's result against its plain version within BF16_RTOL
+    |plain| + BF16_ATOL_SHARE max |plain|: (max |kernel - plain|, the worst
+    error in bf16 ulps of |plain| (floored at BF16_ATOL_SHARE max |plain|),
+    the share of elements not bit-equal)."""
+    import torch
+
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16 or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} against {want.dtype} "
+                             f"{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{name}: non-finite outputs")
+    err = (g - w).abs()
+    bound = BF16_RTOL * w.abs() + BF16_ATOL_SHARE * float(w.abs().max())
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"{name} differs from its plain version by {float(err.max())} "
+                             f"(over the bound by {float((err - bound).max())})")
+    # ulps of |plain|, floored at the absolute part's scale (ulps of a
+    # value that cancels to about 0 say nothing).
+    floor = max(BF16_ATOL_SHARE * float(w.abs().max()), 1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=floor))) - 7)
+    return float(err.max()), float((err / ulp).max()), float((g != w).float().mean())
+
+
+def bf16_rows(calls, reps):
+    """Rows xconv_bf16, xconv_epilogue_bf16, conv_bf16, convt_bf16 and
+    crop_bf16 over one bf16 forward's recorded calls: each call held against
+    its plain bf16 version, timed beside the plain version and a library
+    yardstick (bf16 torch.matmul of the XConv's composed product, cuDNN bf16
+    conv2d / conv_transpose2d, bf16 index_select), bounded at the bf16
+    tensor-core rate or the memory rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from heterofusionrcnn_torch.ops import conv, cropping, xconv
+
+    bf16 = torch.bfloat16
+    rows = {}
+
+    def row(name, src, base):
+        r = new_row(rows, name, f"heterofusionrcnn_torch/ops/csrc/{src}", base)
+        r.update(ulps=0.0, not_bit_equal=0.0, elements=0)
+        return r
+
+    def note(r, err):
+        r["max_abs_err"] = max(r["max_abs_err"], err[0])
+        r["ulps"] = max(r["ulps"], err[1])
+
+    r = row("xconv_bf16", "xconv.cu", "xconv")
+    r["library_ms"] = 0.0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (pts, fts, qrs, idx, w, dtype), _ in calls["fused_xconv"]:
+        if dtype != bf16:
+            raise AssertionError(f"a {dtype} XConv call on the bf16 path")
+        got = xconv.fused_xconv(pts, fts, qrs, idx, w, bf16)
+        want = xconv.fused_xconv_plain(pts, fts, qrs, idx, w, bf16)
+        err = bf16_compare(got, want, "xconv_bf16")
+        note(r, err)
+        r["not_bit_equal"] += err[2] * got.numel()
+        r["elements"] += got.numel()
+        del got, want
+        ms = cuda_ms(lambda: xconv.fused_xconv(pts, fts, qrs, idx, w, bf16), reps)
+        pms = cuda_ms(lambda: xconv.fused_xconv_plain(pts, fts, qrs, idx, w, bf16), 1)
+        b, n = pts.shape[:2]
+        _, p, k = idx.shape
+        cf, cin, d = w.w1.shape[1], w.wc.shape[1], w.wc.shape[2]
+        cp = cin - cf
+        a = xconv.xconv_gemm_operand_bf16(pts, fts, qrs, idx, w).reshape(b * p, k * cin).to(bf16)
+        wc = w.wc.reshape(k * cin, d).to(bf16)
+        lms = cuda_ms(lambda: torch.matmul(a, wc), reps)
+        del a, wc
+        per_q = k * (2 * 3 * cf + 2 * cf * cf + 2 * k * cin + 2 * cin * d)
+        if w.with_x:
+            per_q += 2 * 3 * k * k * k + 2 * 2 * k * k * k
+        wbytes = 4 * sum(t.numel() for f, t in vars(w).items()
+                         if t is not None and f not in ("wc", "wc_operand", "wc_operand_bf16"))
+        nbytes = (4 * b * n * 3 + 2 * b * n * cp + 4 * b * p * (3 + k) + 2 * b * p * d
+                  + wbytes + 2 * w.wc.numel())
+        flops = float(b * p * per_q)
+        add_bound(r, nbytes, flops, BF16_FLOPS_PER_S)
+        r["ms"] += ms
+        r["plain_ms"] += pms
+        r["library_ms"] += lms
+        plan = xconv.plan_xconv(b * p, k, cf, cp, d, sms, bf16)
+        shape = f"{b}x{p} K{k} Cf{cf} Cin{cin} D{d}"
+        r["calls"].append(dict(shape=shape, ms=ms, plain_ms=pms, matmul_ms=lms,
+                               tflops=flops / ms * 1e-9, splits=plan.splits,
+                               max_abs_err=err[0], ulps=err[1], not_bit_equal=err[2]))
+        print(f"xconv_bf16 {shape}: {ms:.4f} ms, {flops / ms * 1e-9:.2f} TFLOP/s, "
+              f"{plan.splits} split(s); bf16 matmul of the product {lms:.4f} ms; "
+              f"max err {err[0]:.3g} ({err[1]:.2f} ulps), not bit-equal {err[2]:.4f}", flush=True)
+
+    r = row("xconv_epilogue_bf16", "xconv.cu", "xconv_epilogue")
+    for (partial, sc, bc, dtype), _ in calls["xconv_split_epilogue"]:
+        got = xconv.xconv_split_epilogue(partial, sc, bc, dtype)
+        want = xconv.xconv_split_epilogue_plain(partial, sc, bc, dtype)
+        err = bf16_compare(got, want, "xconv_epilogue_bf16")
+        note(r, err)
+        r["not_bit_equal"] += err[2] * got.numel()
+        r["elements"] += got.numel()
+        ms = cuda_ms(lambda: xconv.xconv_split_epilogue(partial, sc, bc, dtype), reps)
+        pms = cuda_ms(lambda: xconv.xconv_split_epilogue_plain(partial, sc, bc, dtype), reps)
+        s_, m, d = partial.shape
+        add_bound(r, 4 * partial.numel() + 2 * m * d + 8 * d, float(m * d * (s_ + 3)),
+                  BF16_FLOPS_PER_S)
+        r["ms"] += ms
+        r["plain_ms"] += pms
+        r["calls"].append(dict(shape=f"{s_}x{m}x{d}", ms=ms, plain_ms=pms))
+
+    convs = (("conv_bf16", "conv.cu", "conv", conv.conv3x3_affine_relu,
+              conv.conv3x3_affine_relu_plain, lambda x, w: F.conv2d(x, w, padding=1), 1),
+             ("convt_bf16", "convt.cu", "convt", conv.convtranspose3x3_affine_relu,
+              conv.convtranspose3x3_affine_relu_plain,
+              lambda x, w: F.conv_transpose2d(x, w, stride=2), 4))
+    for name, src, base, fn, plain, library, up in convs:
+        r = row(name, src, base)
+        r["library_ms"] = 0.0
+        for (x, w, sc, sh), kw in calls[KERNEL_OPS[base]]:
+            got, want = fn(x, w, sc, sh, **kw), plain(x, w, sc, sh, **kw)
+            err = bf16_compare(got, want, name)
+            note(r, err)
+            r["not_bit_equal"] += err[2] * got.numel()
+            r["elements"] += got.numel()
+            del got, want
+            w16 = w.to(bf16)
+            ms = cuda_ms(lambda: fn(x, w, sc, sh, **kw), reps)
+            pms = cuda_ms(lambda: plain(x, w, sc, sh, **kw), reps)
+            lms = cuda_ms(lambda: library(x, w16), reps)
+            b, cin, h, wd = x.shape
+            cout = sc.shape[0]
+            flops = 2.0 * 9 * cin * cout * b * h * wd
+            nbytes = 2 * (x.numel() + w.numel() + up * b * cout * h * wd) + 8 * cout
+            add_bound(r, nbytes, flops, BF16_FLOPS_PER_S)
+            r["ms"] += ms
+            r["plain_ms"] += pms
+            r["library_ms"] += lms
+            shape = f"{b}x{cin}x{h}x{wd}->{cout}"
+            r["calls"].append(dict(shape=shape, ms=ms, plain_ms=pms, library_ms=lms,
+                                   tflops=flops / ms * 1e-9, library_tflops=flops / lms * 1e-9,
+                                   ulps=err[1], not_bit_equal=err[2]))
+            print(f"{name} {shape}: {ms:.4f} ms, {flops / ms * 1e-9:.2f} TFLOP/s; cuDNN bf16 "
+                  f"{lms:.4f} ms; max err {err[0]:.3g} ({err[1]:.2f} ulps), not bit-equal "
+                  f"{err[2]:.4f}", flush=True)
+
+    r = row("crop_bf16", "crop.cu", "crop")
+    r["library_ms"] = 0.0
+    for (src, idx, box_ind), kw in calls[KERNEL_OPS["crop"]]:
+        if src.dtype != bf16:
+            raise AssertionError(f"a {src.dtype} crop on the bf16 path")
+        if not torch.equal(cropping.crop_gather(src, idx, box_ind),
+                           cropping.crop_gather_plain(src, idx, box_ind)):
+            raise AssertionError("crop_bf16 differs from its plain version")
+        ms = cuda_ms(lambda: cropping.crop_gather(src, idx, box_ind), reps)
+        pms = cuda_ms(lambda: cropping.crop_gather_plain(src, idx, box_ind), reps)
+        b, n, c = src.shape
+        nb, rr = idx.shape
+        flat = src.reshape(b * n, c)
+        rows_idx = (box_ind.long()[:, None] * n + idx.long()).reshape(-1)
+        lms = cuda_ms(lambda: torch.index_select(flat, 0, rows_idx), reps)
+        distinct = int(torch.unique(rows_idx).numel())
+        add_bound(r, 2 * (distinct + nb * rr) * c + 4 * (idx.numel() + nb), 0.0)
+        r["ms"] += ms
+        r["plain_ms"] += pms
+        r["library_ms"] += lms
+        r["calls"].append(dict(shape=f"{b}x{n}x{c} -> {nb}x{rr}", ms=ms, plain_ms=pms,
+                               library_ms=lms))
+    for r in rows.values():
+        r["not_bit_equal"] = r["not_bit_equal"] / max(r.pop("elements"), 1)
+    return finish_rows(rows)
+
+
+def bf16_small_width_agrees(seed, switches: bool):
+    """The `*_unittest` detector in bf16: the RPN's outputs before any top-k
+    (stage-1 features, image map, segmentation scores) on the card against
+    the CPU's (plain versions), within BF16_MODEL_RTOL |cpu| +
+    BF16_MODEL_SCALE_SHARE of each tensor's largest magnitude; the worst
+    share of that bound used and the final counts."""
+    import torch
+
+    from heterofusionrcnn_torch.configs.presets import rcnn_unittest, rpn_unittest
+    from heterofusionrcnn_torch.inference import build_two_stage
+
+    det, inputs = build_two_stage(2, seed, "cpu", rpn_unittest(), rcnn_unittest(),
+                                  conv_kernels=switches, crop_kernel=switches,
+                                  compute_dtype="bfloat16")
+    randomize_batchnorm(det, seed)
+    want = det.rpn(*inputs)
+    cuda_inputs = [t.to("cuda") for t in inputs]
+    got = det.to("cuda").rpn(*cuda_inputs)
+    worst = 0.0
+    for key in ("rpn_fts", "rpn_img_fts", "img_feature_map", "seg_logits", "seg_softmax"):
+        g, w = got[key].float().cpu(), want[key].float()
+        bound = BF16_MODEL_RTOL * w.abs() + BF16_MODEL_SCALE_SHARE * float(w.abs().max())
+        worst = max(worst, float(((g - w).abs() / bound).max()))
+    final = det(*cuda_inputs)["num_final"].cpu().tolist()
+    return worst <= 1.0, worst, final
+
+
+def bf16_phase(kernels, det32, inputs, launches32, handoff, out_root):
+    """Step 12 (module docstring): the bf16 detector at batch 4, switches off
+    and on, counted, timed in turns against the float32 one, profiled, every
+    kernel call held (rows *_bf16), its outputs checked, the small-width
+    card/CPU check, and the bf16 RCNN evaluation over step 10's handoff."""
+    import torch
+
+    from heterofusionrcnn_torch.configs import config as config_lib
+    from heterofusionrcnn_torch.core.rotated_iou import box_3d_iou
+    from heterofusionrcnn_torch.experiments import common, run_evaluation
+    from heterofusionrcnn_torch.inference import build_two_stage
+    from heterofusionrcnn_torch.runtime import evaluator
+
+    t_phase = time.perf_counter()
+    report = {}
+    dets = {}
+    for switches in (False, True):
+        d16, inp16 = build_two_stage(BATCH, SEED, "cuda", conv_kernels=switches,
+                                     crop_kernel=switches, compute_dtype="bfloat16")
+        randomize_batchnorm(d16, SEED)
+        if not all(torch.equal(a, c) for a, c in zip(inputs, inp16)):
+            raise AssertionError("the bf16 detector has other inputs")
+        sd, sd16 = det32.state_dict(), d16.state_dict()
+        if sd.keys() != sd16.keys() or not all(
+                sd16[k].dtype == sd[k].dtype and torch.equal(sd[k], sd16[k]) for k in sd):
+            raise AssertionError("the bf16 detector has other (or non-float32) weights")
+        dets[switches] = d16
+    det32_on, _ = build_two_stage(BATCH, SEED, "cuda", conv_kernels=True, crop_kernel=True)
+    randomize_batchnorm(det32_on, SEED)
+
+    float_kernels = ("xconv", "xconv_epilogue", "conv", "convt", "crop")
+    outs = {}
+    for switches in (False, True):
+        with recording(BF16_OPS) as calls:
+            dets[switches](*inputs)
+        torch.cuda.synchronize()
+        out, launches = counted_forward(dets[switches], inputs, kernels)
+        outs[switches] = out
+        key = "on" if switches else "off"
+        report[f"launches_per_forward_switches_{key}"] = launches
+        want = {k: launches32[k] for k in ("knn", "knn_prep", "fps", "nms")}
+        want.update({k: 0 for k in float_kernels})
+        want["xconv_bf16"] = launches32["xconv"]
+        want["xconv_epilogue_bf16"] = len(calls["xconv_split_epilogue"])
+        want.update({k: (v if switches else 0) for k, v in BF16_SWITCHED.items()})
+        if launches != want:
+            raise AssertionError(f"bf16 forward (switches {key}) launches {launches} != {want}")
+        report[f"num_final_switches_{key}"] = check_outputs(out, BATCH)
+        if switches:
+            calls_on = calls
+        else:
+            del calls
+    # KNN, FPS and NMS of the bf16 forward: float32 coordinates and scores,
+    # bit-exact against their plain versions.
+    for op, name in (("knn_point", "knn"), ("farthest_point_sample", "fps"),
+                     ("oriented_nms", "nms")):
+        for args, kw in calls_on[op]:
+            check_index_exact(name, args, kw)
+    report["index_exact_calls"] = {op: len(calls_on[op]) for op in
+                                   ("knn_point", "farthest_point_sample", "oriented_nms")}
+
+    turns = {}
+    for key, d32, d16 in (("off", det32, dets[False]), ("on", det32_on, dets[True])):
+        turns[key] = [cuda_ms(lambda: d(*inputs), ITERS) for d in (d32, d16, d16, d32)]
+        print(f"bf16 forward, switches {key}: {(turns[key][1] + turns[key][2]) / 2:.2f} ms per "
+              f"batch of {BATCH} against float32's {(turns[key][0] + turns[key][3]) / 2:.2f} "
+              f"(turns {' '.join(f'{t:.2f}' for t in turns[key])})", flush=True)
+    report["turns_ms_f32_bf16_bf16_f32"] = turns
+    report["profile_switches_on"] = profile_forward(dets[True], inputs, top=20)
+    report["device_busy_share_switches_on"] = (report["profile_switches_on"]["device_busy_ms"]
+                                               / ((turns["on"][1] + turns["on"][2]) / 2))
+    report["profile_switches_off"] = profile_forward(dets[False], inputs, top=20)
+    report["device_busy_share_switches_off"] = (report["profile_switches_off"]["device_busy_ms"]
+                                                / ((turns["off"][1] + turns["off"][2]) / 2))
+
+    # The RPN's segmentation logits against the float32 RPN's; the float32
+    # detector's final boxes matched by a bf16 box at BEV IoU >= 0.7.
+    seg32 = det32.rpn(*inputs)["seg_logits"]
+    seg16 = dets[False].rpn(*inputs)["seg_logits"]
+    scale = float(seg32.abs().max())
+    seg_err = float((seg16 - seg32).abs().max())
+    report["seg_logits"] = dict(max_abs_diff=seg_err, f32_scale=scale, share=seg_err / scale)
+    print(f"bf16 seg logits: max |bf16 - float32| {seg_err:.4g} at scale {scale:.4g} "
+          f"({seg_err / scale:.4f}, bound {SEG_LOGIT_BOUND})", flush=True)
+    if seg_err > SEG_LOGIT_BOUND * scale:
+        raise AssertionError(f"bf16 seg logits off the float32 ones by {seg_err} at {scale}")
+    def matched(ref, other):
+        """Final boxes of `ref` matched by a box of `other` at BEV IoU >= 0.7."""
+        hit = total = 0
+        for b in range(BATCH):
+            n_ref, n_other = int(ref["num_final"][b]), int(other["num_final"][b])
+            if n_ref and n_other:
+                iou = box_3d_iou(ref["final_boxes"][b, :n_ref],
+                                 other["final_boxes"][b, :n_other])[1]
+                hit += int((iou.max(1).values >= 0.7).sum())
+            total += n_ref
+        return hit, total
+
+    # A yardstick for that share: the float32 detector with every weight
+    # moved by a bf16-sized relative step, 2^-8 N(0, 1).
+    out32 = det32(*inputs)
+    det32p, _ = build_two_stage(BATCH, SEED, "cuda")
+    randomize_batchnorm(det32p, SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    for prm in det32p.parameters():
+        prm.mul_(1 + 2.0 ** -8 * torch.randn(prm.shape, generator=gen).to(prm.device))
+    hit, total = matched(out32, outs[False])
+    hit_p, total_p = matched(out32, det32p(*inputs))
+    report["final_boxes_matched_iou07"] = hit / max(total, 1)
+    report["final_boxes_matched_iou07_perturbed_f32"] = hit_p / max(total_p, 1)
+    print(f"float32 final boxes matched by a bf16 box at BEV IoU >= 0.7: {hit} of {total} "
+          f"(by the float32 detector with its weights moved by 2^-8 N(0, 1): {hit_p} of "
+          f"{total_p})", flush=True)
+    del out32, outs, det32p
+
+    rows = bf16_rows(calls_on, REPS)
+    del calls_on
+    for name, r in rows.items():
+        r["launches"] = report["launches_per_forward_switches_on"][name]
+    if not rows["xconv_epilogue_bf16"]["launches"]:
+        del rows["xconv_epilogue_bf16"]
+    del dets, det32_on
+    torch.cuda.empty_cache()
+
+    for switches in (False, True):
+        agree, worst, final = bf16_small_width_agrees(SEED, switches)
+        key = "on" if switches else "off"
+        report[f"small_width_agrees_switches_{key}"] = [agree, worst, final]
+        print(f"bf16 rpn_unittest card vs CPU (switches {key}): worst share of the bound "
+              f"{worst:.3f}", flush=True)
+        if not agree:
+            raise AssertionError(f"bf16 small-width card run disagrees with the CPU run "
+                                 f"(switches {key}): {worst}")
+
+    # Val mode: the RCNN's evaluation over step 10's handoff from a pipeline
+    # config whose model_config.compute_dtype is "bfloat16", batch 1.
+    cfg_dir = os.path.join(out_root, "chip_smoke_bf16_config")
+    os.makedirs(cfg_dir, exist_ok=True)
+    cfg = common.resolve_config("rcnn_multiclass")
+    cfg.model_config.compute_dtype = "bfloat16"
+    cfg_path = os.path.join(cfg_dir, "rcnn_multiclass.json")
+    config_lib.save_config(cfg, cfg_path)
+    root = os.path.join(out_root, "chip_smoke_bf16_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "rcnn_multiclass"))
+    os.symlink(handoff["ckpts"], os.path.join(root, "rcnn_multiclass", "checkpoints"))
+    apply = evaluator.RcnnEvaluator._apply
+    forwards = []
+
+    def counted_apply(self, batch):
+        if self.model.dtype != torch.bfloat16:
+            raise AssertionError("the RCNN evaluator's model is not bf16")
+        for kern in kernels.values():
+            kern.launches = 0
+        out = apply(self, batch)
+        torch.cuda.synchronize()
+        forwards.append({k: kern.launches for k, kern in kernels.items()})
+        return out
+
+    with patched(evaluator.RcnnEvaluator, "_apply", counted_apply):
+        summary, = run_evaluation.main([
+            "--pipeline_config", cfg_path, "--dataset_dir", KITTI_DIR, "--output_root", root,
+            "--data_split", "val", "--num_rois", str(RCNN_EVAL_ROIS), "--eval_batch_size", "1",
+            "--proposal_dir", handoff["dirs"][0], "--proposal_iou_dir", handoff["dirs"][1],
+            "--rpn_feature_dir", handoff["dirs"][2]])
+    step = summary["global_step"]
+    pred = os.path.join(root, "rcnn_multiclass", "predictions")
+    frames = sorted(os.path.splitext(n)[0] for n in os.listdir(
+        os.path.join(pred, "final_predictions_and_scores", "val", str(step))))
+    if not frames or len(forwards) != len(frames):
+        raise AssertionError(f"{len(forwards)} bf16 RCNN eval forwards for {frames}")
+    per_forward = {"knn": 4, "fps": 3, "xconv_bf16": 4, "nms": 1}
+    for f in forwards:
+        got = {k: f[k] for k in per_forward}
+        others = {k: v for k, v in f.items()
+                  if k not in per_forward and k != "xconv_epilogue_bf16" and v}
+        if got != per_forward or others:
+            raise AssertionError(f"bf16 RCNN eval forward launches {f}")
+    check_rcnn_eval_files(pred, step, frames)
+    tstats = summary["inference_time_stats"]
+    report["rcnn_eval"] = dict(step=step, frames=len(frames), launches_per_forward=forwards[0],
+                               ms_per_frame={k: v * 1e3 for k, v in tstats.items()},
+                               avg_cls_acc=summary["avg_cls_acc"])
+    print(f"bf16 RCNN eval: {len(frames)} frames, {RCNN_EVAL_ROIS} RoIs a frame, ms per frame "
+          f"(host clock) median {tstats['median'] * 1e3:.2f} mean {tstats['mean'] * 1e3:.2f}; "
+          f"launches a forward {forwards[0]}", flush=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"bf16 phase: {report['phase_s']:.1f} s", flush=True)
+    return report, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="outputs", help="directory for chip_smoke.json")
@@ -1998,8 +2454,13 @@ def main(argv=None) -> int:
                "nms": nms.NMS_KERNEL, "xconv": xconv.XCONV_KERNEL,
                "xconv_epilogue": xconv.XCONV_EPILOGUE_KERNEL, "crop": cropping.CROP_KERNEL, "conv": conv.CONV_KERNEL,
                "convt": conv.CONVT_KERNEL}
+    # The bf16 entries of the same libraries (step 12), counted apart.
+    kernels_bf16 = {"xconv_bf16": xconv.XCONV_BF16_KERNEL,
+                    "xconv_epilogue_bf16": xconv.XCONV_EPILOGUE_BF16_KERNEL,
+                    "conv_bf16": conv.CONV_BF16_KERNEL, "convt_bf16": conv.CONVT_BF16_KERNEL,
+                    "crop_bf16": cropping.CROP_BF16_KERNEL}
     t0 = time.perf_counter()
-    dispatch.build_all(kernels.values())
+    dispatch.build_all([*kernels.values(), *kernels_bf16.values()])
     report["build_s"] = time.perf_counter() - t0
     report["ptxas"] = {k: kern.build_log for k, kern in kernels.items()}
     tensor_core = ("conv", "convt", "xconv")
@@ -2015,6 +2476,9 @@ def main(argv=None) -> int:
     print(f"tensor-core instructions in SASS: {report['sass_conv']}", flush=True)
     if not all(c["HGMMA"] for c in report["sass_conv"].values()):
         raise AssertionError(f"tensor-core kernels without wgmma: {report['sass_conv']}")
+    # The bf16 forms in the same libraries run mma.sync (HMMA).
+    if not all(c["HMMA"] for c in report["sass_conv"].values()):
+        raise AssertionError(f"bf16 kernels without mma.sync: {report['sass_conv']}")
 
     b = BATCH
     det, inputs = build_two_stage(BATCH, SEED, "cuda")
@@ -2090,13 +2554,18 @@ def main(argv=None) -> int:
     report["rcnn_eval"], eval_rows = rcnn_eval_phase(kernels, args.out)
     rows.update(eval_rows)
     report["export"] = export_phase(args.out, launches_on)
+    report["bf16"], bf16_kernel_rows = bf16_phase(dict(kernels, **kernels_bf16), det, inputs,
+                                                  launches, report["rcnn_eval"].pop("handoff"),
+                                                  args.out)
+    rows.update(bf16_kernel_rows)
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("bytes_bound_ms", "visited_bound_ms", "visited_share")  # the KNN row's
+    # The KNN row's and the bf16 rows' extra keys.
+    extra = ("bytes_bound_ms", "visited_bound_ms", "visited_share", "ulps", "not_bit_equal")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {

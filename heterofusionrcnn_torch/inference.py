@@ -9,7 +9,10 @@ passes `device="cpu"`. Two switches, both off by default as their JAX
 counterparts are: `conv_kernels` (the VGG convs through the fused kernels
 of `ops/conv.py`, JAX's `HFR_PALLAS_CONV=1`) and `crop_kernel` (the RCNN
 point crop's feature gather through `ops/cropping.crop_gather`, JAX's
-`HFR_PALLAS_CROP=1`).
+`HFR_PALLAS_CROP=1`). Each stage computes in its config's
+`model_config.compute_dtype` ("float32" or "bfloat16", the bf16 serving
+path; `build_two_stage(compute_dtype=...)` sets both, as the JAX bench's
+`build_stages(dtype=...)` does).
 """
 
 from __future__ import annotations
@@ -33,9 +36,11 @@ CLUSTER_SIZES = ((3.9, 1.6, 1.56), (0.8, 0.66, 1.74), (1.76, 0.6, 1.73))
 def exact_float32() -> None:
     """Keep float32 matmuls and convolutions in full float32 on the card
     (TF32 would drop to ~3 decimal digits, the role the JAX package's
-    `Precision.HIGHEST` pins play against the TPU's bf16 default)."""
+    `Precision.HIGHEST` pins play against the TPU's bf16 default), and
+    bf16 matmuls' sums in float32 (`preferred_element_type=f32`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class TwoStageDetector(nn.Module):
@@ -116,15 +121,20 @@ def build_two_stage(
     rcnn_cfg: Optional[PipelineConfig] = None,
     conv_kernels: bool = False,
     crop_kernel: bool = False,
+    compute_dtype: str = "float32",
 ):
     """The full-width `rpn_multiclass` / `rcnn_multiclass` detector with
     random weights from `seed`, in eval mode on `device`, and a synthetic
-    batch from the same seed. Returns (detector, (pc, img, p2))."""
+    batch from the same seed. `compute_dtype` ("float32" or "bfloat16")
+    goes into both stages' model configs, as `bench.build_stages(dtype=)`
+    does; the weights stay float32. Returns (detector, (pc, img, p2))."""
     if device != "cpu" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not available")
     exact_float32()
     rpn_cfg = rpn_cfg or rpn_multiclass()
     rcnn_cfg = rcnn_cfg or rcnn_multiclass()
+    rpn_cfg.model_config.compute_dtype = compute_dtype
+    rcnn_cfg.model_config.compute_dtype = compute_dtype
     rcnn_cfg.model_config.rcnn_config.rcnn_use_rpn_img_feature_map = True
     det = TwoStageDetector(rpn_cfg, rcnn_cfg, conv_kernels=conv_kernels, crop_kernel=crop_kernel)
     det = init_weights(det, seed).to(device).eval()

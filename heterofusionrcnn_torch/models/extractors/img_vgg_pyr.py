@@ -6,10 +6,14 @@ transposed-conv decoder with skip concatenations back to full resolution
 (vgg_conv1 filters). `ImgVgg`: the encoder plus bilinear upsampling. Both
 take and return NHWC like the JAX modules and run NCHW inside.
 `conv_kernels=True` runs every 3x3 conv and transposed conv block through
-the fused kernels of `ops/conv.py` in eval mode.
+the fused kernels of `ops/conv.py` in eval mode. `dtype` (None: float32;
+`torch.bfloat16`) is every block's compute dtype (`layers.py`): the image
+is rounded to it by the first conv and the map comes out in it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -41,14 +45,14 @@ def _maybe_downsample(x: torch.Tensor, ds: int) -> torch.Tensor:
 
 class _Blocks(nn.Module):
     def __init__(self, config: ImgVggPyrConfig, in_channels: int = 3,
-                 conv_kernels: bool = False):
+                 conv_kernels: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
         c = in_channels
         for name, (repeats, filters) in self._specs():
             for i in range(repeats):
                 self.add_module(f"{name}_{i + 1}",
-                                ConvBNRelu(c, filters, conv_kernel=conv_kernels))
+                                ConvBNRelu(c, filters, conv_kernel=conv_kernels, dtype=dtype))
                 c = filters
 
     def _specs(self):
@@ -81,11 +85,11 @@ class ImgVggPyr(_Blocks):
     """U-Net-shaped VGG: (B, H, W, 3) -> (B, H, W, vgg_conv1 filters)."""
 
     def __init__(self, config: ImgVggPyrConfig, in_channels: int = 3,
-                 conv_kernels: bool = False):
-        super().__init__(config, in_channels, conv_kernels)
+                 conv_kernels: bool = False, dtype: Optional[torch.dtype] = None):
+        super().__init__(config, in_channels, conv_kernels, dtype)
         c1, c2, c3, c4 = (config.vgg_conv1[1], config.vgg_conv2[1],
                           config.vgg_conv3[1], config.vgg_conv4[1])
-        k = dict(conv_kernel=conv_kernels)
+        k = dict(conv_kernel=conv_kernels, dtype=dtype)
         self.upconv3 = ConvTransposeBNRelu(c4, c3, **k)
         self.pyramid_fusion3 = ConvBNRelu(c3 + c3, c2, **k)
         self.upconv2 = ConvTransposeBNRelu(c2, c2, **k)

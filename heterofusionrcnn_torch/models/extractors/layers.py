@@ -15,6 +15,15 @@ NCHW, their callers convert from the NHWC of the public API. With
 conv + folded-BN + ReLU call (`ops/conv.py`), the port's counterpart of the
 JAX package's `HFR_PALLAS_CONV=1`; off, they run the cuDNN / CPU conv and
 BatchNorm, the JAX package's default path.
+
+`dtype` is the compute dtype of the flax modules' `dtype=` (None: float32;
+`torch.bfloat16` for the bf16 serving path). Parameters and buffers stay
+float32, so a float32 checkpoint serves in bf16: a Dense or conv casts its
+input, kernel and bias to `dtype`, takes the product in `dtype` (float32
+sums) and adds the bias in `dtype`; a BatchNorm in inference subtracts its
+float32 mean from the bf16 input, which promotes the normalisation to
+float32, and rounds the result to bf16 once (flax `_normalize`). The
+bf16 path is inference-only.
 """
 
 from __future__ import annotations
@@ -30,6 +39,28 @@ from heterofusionrcnn_torch.ops.conv import conv3x3_affine_relu, convtranspose3x
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+           dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """flax `nn.Dense(dtype=...)`: the product in `dtype` (float32 sums),
+    then the bias added in `dtype`; dtype None is the float32 `F.linear`."""
+    if dtype is None:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
+
+
+def batch_norm_eval_promoted(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                             channel_dim: int) -> torch.Tensor:
+    """flax `nn.BatchNorm` in inference on a reduced-precision `x`:
+    (x - mean) with the float32 mean is float32, so the normalisation runs
+    in float32 and its result is rounded to x's dtype once."""
+    shape = [1] * x.dim()
+    shape[channel_dim] = -1
+    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    y = (x.float() - bn.running_mean.reshape(shape)) * mul.reshape(shape) + bn.bias.reshape(shape)
+    return y.to(x.dtype)
 
 
 def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
@@ -59,6 +90,8 @@ class BatchNorm(nn.BatchNorm1d):
     def forward(self, x):
         if self.training:
             return batch_norm_train(self, x, -1)
+        if x.dtype != torch.float32:
+            return batch_norm_eval_promoted(self, x, -1)
         shape = x.shape
         return super().forward(x.reshape(-1, shape[-1])).reshape(shape)
 
@@ -77,6 +110,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if self.training:
             return batch_norm_train(self, x, 1)
+        if x.dtype != torch.float32:
+            return batch_norm_eval_promoted(self, x, 1)
         return super().forward(x)
 
 
@@ -97,14 +132,15 @@ class DenseBN(nn.Module):
     """Dense -> ELU -> BN (pointfly.dense); without BN the Dense has a bias."""
 
     def __init__(self, in_features: int, features: int, use_bn: bool = True,
-                 activation: bool = True):
+                 activation: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.Dense_0 = nn.Linear(in_features, features, bias=not use_bn)
         self.activation = activation
         self.BatchNorm_0 = BatchNorm(features) if use_bn else None
+        self.dtype = dtype
 
     def forward(self, x):
-        x = self.Dense_0(x)
+        x = linear(x, self.Dense_0.weight, self.Dense_0.bias, self.dtype)
         if self.activation:
             x = F.elu(x)
         if self.BatchNorm_0 is not None:
@@ -117,9 +153,9 @@ class ConvOverK(nn.Module):
     (B, P, K, C) -> (B, P, features)."""
 
     def __init__(self, k: int, in_channels: int, features: int, use_bn=True,
-                 activation=True):
+                 activation=True, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.DenseBN_0 = DenseBN(k * in_channels, features, use_bn, activation)
+        self.DenseBN_0 = DenseBN(k * in_channels, features, use_bn, activation, dtype)
 
     def forward(self, x):
         b, p, k, c = x.shape
@@ -131,15 +167,19 @@ class DepthwiseConvOverK(nn.Module):
     (B, P, K, C) -> (B, P, C * depth_multiplier)."""
 
     def __init__(self, k: int, in_channels: int, depth_multiplier: int,
-                 use_bn=True, activation=True):
+                 use_bn=True, activation=True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.depthwise = nn.Parameter(torch.empty(k, in_channels, depth_multiplier))
         self.activation = activation
         self.BatchNorm_0 = BatchNorm(in_channels * depth_multiplier) if use_bn else None
+        self.dtype = dtype
 
     def forward(self, x):
         b, p, k, c = x.shape
-        out = torch.einsum("bpkc,kcj->bpcj", x, self.depthwise).reshape(b, p, -1)
+        w = self.depthwise
+        if self.dtype is not None:
+            x, w = x.to(self.dtype), w.to(self.dtype)
+        out = torch.einsum("bpkc,kcj->bpcj", x, w).reshape(b, p, -1)
         if self.activation:
             out = F.elu(out)
         if self.BatchNorm_0 is not None:
@@ -153,8 +193,10 @@ class SeparableConvOverK(nn.Module):
     two weights compose into one (K, C, features) kernel."""
 
     def __init__(self, k: int, in_channels: int, features: int,
-                 depth_multiplier: int = 1, use_bn=True, activation=True):
+                 depth_multiplier: int = 1, use_bn=True, activation=True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.depth_multiplier = depth_multiplier
         self.depthwise = nn.Parameter(torch.empty(k, in_channels, depth_multiplier))
         self.Dense_0 = nn.Linear(in_channels * depth_multiplier, features, bias=not use_bn)
@@ -167,10 +209,15 @@ class SeparableConvOverK(nn.Module):
         return torch.einsum("kcj,cjd->kcd", self.depthwise, wp)
 
     def forward(self, x):
+        """The weights composed in float32, then cast to `dtype` with x."""
         b, p, k, c = x.shape
-        out = x.reshape(b, p, k * c) @ self.composed_weight().reshape(k * c, -1)
-        if self.Dense_0.bias is not None:
-            out = out + self.Dense_0.bias
+        w, bias = self.composed_weight().reshape(k * c, -1), self.Dense_0.bias
+        if self.dtype is not None:
+            x, w = x.to(self.dtype), w.to(self.dtype)
+            bias = None if bias is None else bias.to(self.dtype)
+        out = x.reshape(b, p, k * c) @ w
+        if bias is not None:
+            out = out + bias
         if self.activation:
             out = F.elu(out)
         if self.BatchNorm_0 is not None:
@@ -193,17 +240,29 @@ class ConvBNRelu(nn.Module):
     """3x3 SAME conv (with bias) + BN + ReLU on NCHW."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
-                 conv_kernel: bool = False):
+                 conv_kernel: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.Conv_0 = nn.Conv2d(in_channels, features, kernel, padding=kernel // 2)
         self.BatchNorm_0 = BatchNorm2d(features)
         self.conv_kernel = conv_kernel and kernel == 3
+        self.dtype = dtype
 
     def forward(self, x):
+        """In `dtype` the fused op takes x rounded to it (the kernel's
+        entry follows x's dtype); the unfused conv casts x, kernel and
+        bias, as flax's `nn.Conv(dtype=...)`."""
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         if self.conv_kernel and not self.training:
             s, t = fold_bn_affine(self.Conv_0, self.BatchNorm_0)
             return conv3x3_affine_relu(x, self.Conv_0.weight, s, t)
-        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        if self.dtype is None:
+            y = self.Conv_0(x)
+        else:
+            conv = self.Conv_0
+            y = F.conv2d(x, conv.weight.to(self.dtype), padding=conv.padding)
+            y = y + conv.bias.to(self.dtype)[:, None, None]
+        return F.relu(self.BatchNorm_0(y))
 
 
 class ConvTransposeBNRelu(nn.Module):
@@ -217,19 +276,27 @@ class ConvTransposeBNRelu(nn.Module):
     the last row and column are cropped."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
-                 conv_kernel: bool = False):
+                 conv_kernel: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.ConvTranspose_0 = nn.ConvTranspose2d(in_channels, features, kernel, stride=2)
         self.BatchNorm_0 = BatchNorm2d(features)
         self.conv_kernel = conv_kernel and kernel == 3
+        self.dtype = dtype
 
     def forward(self, x):
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         if self.conv_kernel and not self.training:
             s, t = fold_bn_affine(self.ConvTranspose_0, self.BatchNorm_0)
             return convtranspose3x3_affine_relu(x, self.ConvTranspose_0.weight, s, t)
         h, w = x.shape[2], x.shape[3]
-        y = self.ConvTranspose_0(x)[:, :, : 2 * h, : 2 * w]
-        return F.relu(self.BatchNorm_0(y))
+        if self.dtype is None:
+            y = self.ConvTranspose_0(x)
+        else:
+            convt = self.ConvTranspose_0
+            y = F.conv_transpose2d(x, convt.weight.to(self.dtype), stride=2)
+            y = y + convt.bias.to(self.dtype)[:, None, None]
+        return F.relu(self.BatchNorm_0(y[:, :, : 2 * h, : 2 * w]))
 
 
 def glorot_normal_(t: torch.Tensor, fan_in: int, fan_out: int, gen: torch.Generator):

@@ -15,6 +15,11 @@ XLA path), with BatchNorm on batch statistics in training. In eval mode
 with autograd on, the CPU takes the same layer-by-layer path (the JAX
 package's CPU path); on the card that call raises instead of leaving the
 kernel.
+
+`dtype` (None: float32; `torch.bfloat16`) is the flax modules' compute
+dtype: every layer computes in it (`layers.py`), the fused op runs its bf16
+form on features cast to bf16 (the JAX `_fused` path's `fts.astype(cd)`),
+and the outputs are bf16. Coordinates, FPS and KNN stay float32.
 """
 
 from __future__ import annotations
@@ -35,7 +40,12 @@ from heterofusionrcnn_torch.models.extractors.layers import (
 )
 from heterofusionrcnn_torch.ops.grouping import group_point, knn_point
 from heterofusionrcnn_torch.ops.sampling import farthest_point_sample, gather_point
-from heterofusionrcnn_torch.ops.xconv import XConvWeights, fused_xconv, xconv_weight_operand
+from heterofusionrcnn_torch.ops.xconv import (
+    XConvWeights,
+    fused_xconv,
+    xconv_weight_operand,
+    xconv_weight_operand_bf16,
+)
 
 
 class XConv(nn.Module):
@@ -44,23 +54,26 @@ class XConv(nn.Module):
 
     def __init__(self, K: int, D: int, C: int, C_pts_fts: int, c_in_fts: int,
                  depth_multiplier: int, with_X_transformation: bool = True,
-                 with_global: bool = False, sorting_method: str = ""):
+                 with_global: bool = False, sorting_method: str = "",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if sorting_method:
             raise NotImplementedError("sorted XConv neighbourhoods are not ported")
         self.K, self.D, self.C = K, D, C
         self.with_X_transformation = with_X_transformation
         self.with_global = with_global
-        self.nn_fts_from_pts_0 = DenseBN(3, C_pts_fts)
-        self.nn_fts_from_pts = DenseBN(C_pts_fts, C_pts_fts)
+        self.dtype = dtype
+        dt = dict(dtype=dtype)
+        self.nn_fts_from_pts_0 = DenseBN(3, C_pts_fts, **dt)
+        self.nn_fts_from_pts = DenseBN(C_pts_fts, C_pts_fts, **dt)
         if with_X_transformation:
-            self.X_0 = ConvOverK(K, 3, K * K)
-            self.X_1 = DepthwiseConvOverK(K, K, K)
-            self.X_2 = DepthwiseConvOverK(K, K, K, activation=False)
-        self.fts_conv = SeparableConvOverK(K, C_pts_fts + c_in_fts, C, depth_multiplier)
+            self.X_0 = ConvOverK(K, 3, K * K, **dt)
+            self.X_1 = DepthwiseConvOverK(K, K, K, **dt)
+            self.X_2 = DepthwiseConvOverK(K, K, K, activation=False, **dt)
+        self.fts_conv = SeparableConvOverK(K, C_pts_fts + c_in_fts, C, depth_multiplier, **dt)
         if with_global:
-            self.fts_global_0 = DenseBN(3, C // 4)
-            self.fts_global = DenseBN(C // 4, C // 4)
+            self.fts_global_0 = DenseBN(3, C // 4, **dt)
+            self.fts_global = DenseBN(C // 4, C // 4, **dt)
         self._folded = None  # (key, XConvWeights) of kernel_weights()
         self.weight_folds = 0  # folds made by kernel_weights()
 
@@ -94,10 +107,10 @@ class XConv(nn.Module):
         return [t for m in mods for t in (*m.parameters(), *m.buffers())]
 
     def kernel_weights(self) -> XConvWeights:
-        """`weights()` with Wc arranged for the kernel where the module
-        lives on the card, kept until the `_version` or `data_ptr` of a
-        tensor it reads changes (an in-place update, `load_state_dict`, a
-        move to another device). Under `torch.export` or `torch.compile`
+        """`weights()` with Wc arranged for the kernel of the module's
+        dtype where the module lives on the card, kept until the `_version`
+        or `data_ptr` of a tensor it reads changes (an in-place update,
+        `load_state_dict`, a move to another device). Under `torch.export` or `torch.compile`
         (fake tensors: no data pointer) the fold is computed in the graph
         from the parameters on every call, nothing kept, and the op
         arranges Wc per call."""
@@ -112,7 +125,9 @@ class XConv(nn.Module):
                 for name, t in vars(w).items():
                     if t is not None and t._base is not None:
                         setattr(w, name, t.clone())
-                if w.wc.is_cuda:
+                if w.wc.is_cuda and self.dtype == torch.bfloat16:
+                    w.wc_operand_bf16 = xconv_weight_operand_bf16(w.wc, w.w1.shape[1])
+                elif w.wc.is_cuda:
                     w.wc_operand = xconv_weight_operand(w.wc, w.w1.shape[1])
             self._folded = (key, w)
             self.weight_folds += 1
@@ -132,7 +147,10 @@ class XConv(nn.Module):
             x0 = self.X_0(local).reshape(b, p, k, k)
             x1 = self.X_1(x0).reshape(b, p, k, k)
             x2 = self.X_2(x1).reshape(b, p, k, k)
-            fin = torch.einsum("bpkj,bpjc->bpkc", x2, fin)
+            # jnp.einsum promotes mixed operands (bf16 X with float32
+            # features) to the wider type.
+            dt = torch.promote_types(x2.dtype, fin.dtype)
+            fin = torch.einsum("bpkj,bpjc->bpkc", x2.to(dt), fin.to(dt))
         return self.fts_conv(fin)
 
     def forward(self, pts, fts, qrs, nn_idx=None):
@@ -152,8 +170,11 @@ class XConv(nn.Module):
             raise RuntimeError(
                 "the fused XConv kernel has no backward: call an eval-mode "
                 "forward on the card under torch.no_grad(), or train() the module")
-        else:
+        elif self.dtype is None:
             out = fused_xconv(pts, fts, qrs, idx.contiguous(), self.kernel_weights())
+        else:
+            out = fused_xconv(pts, None if fts is None else fts.to(self.dtype), qrs,
+                              idx.contiguous(), self.kernel_weights(), self.dtype)
         if self.with_global:
             g = self.fts_global(self.fts_global_0(qrs))
             return torch.cat([g, out], dim=-1)
@@ -166,11 +187,13 @@ class PointCNN(nn.Module):
     forward(points (B, N, 3), features (B, N, Cf) or None) ->
     (points (B, P_out, 3), features (B, P_out, C_out))."""
 
-    def __init__(self, config: PointCNNConfig, in_channels: int):
+    def __init__(self, config: PointCNNConfig, in_channels: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if config.sampling != "fps":
             raise NotImplementedError(f"sampling {config.sampling!r} is not ported")
         self.config = config
+        dt = dict(dtype=dtype)
         xconvs, xdconvs = config.xconv_layers, config.xdconv_layers
         out_ch: List[int] = [in_channels]
         for i, lp in enumerate(xconvs):
@@ -184,7 +207,7 @@ class PointCNN(nn.Module):
                 lp.K, lp.D, lp.C, c_pts_fts, out_ch[-1], dm,
                 config.with_X_transformation,
                 config.with_global and i == len(xconvs) - 1,
-                config.sorting_method,
+                config.sorting_method, **dt,
             )
             self.add_module(f"xconv_{i + 1}", layer)
             out_ch.append(layer.out_channels)
@@ -195,12 +218,12 @@ class PointCNN(nn.Module):
             c_prev = xconvs[lp.pts_layer_idx].C
             self.add_module(tag, XConv(
                 lp.K, lp.D, c, c_prev // 4, c_fts, 1,
-                config.with_X_transformation, False, config.sorting_method,
+                config.with_X_transformation, False, config.sorting_method, **dt,
             ))
-            self.add_module(tag + "_fuse", DenseBN(c + out_ch[lp.qrs_layer_idx + 1], c))
+            self.add_module(tag + "_fuse", DenseBN(c + out_ch[lp.qrs_layer_idx + 1], c, **dt))
             out_ch.append(c)
         for i, fc in enumerate(config.fc_layers):
-            self.add_module(f"fc{i}", DenseBN(out_ch[-1], fc.C))
+            self.add_module(f"fc{i}", DenseBN(out_ch[-1], fc.C, **dt))
             out_ch.append(fc.C)
         self.out_channels = out_ch[-1]
 

@@ -15,6 +15,13 @@ heads. No gradient reaches the stage-1 features: they are detached, as the
 JAX model stops their gradient. BatchNorm, dropout and path drop follow the
 module's `training` flag; every random draw comes from a generator the
 caller passes ("dropout" and "path_drop", the flax rng streams).
+
+`config.compute_dtype` "bfloat16" serves in bf16 as the RPN does
+(`models/rpn.py`): the layers compute in bf16, the heads are cast to
+float32 (JAX rcnn.py:221, :234); mixed-dtype operands promote as in JAX
+(the bilinear image crop of a bf16 map is float32, and so is the fused
+vector of bf16 point and float32 image RoI features). Train mode raises
+for it.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ from heterofusionrcnn_torch.models.extractors.layers import DenseBN, dropout
 from heterofusionrcnn_torch.models.extractors.pointcnn import PointCNN
 from heterofusionrcnn_torch.models.rpn import (
     bin_params,
+    check_dtype_mode,
+    compute_dtype,
     create_path_drop_masks,
     decode_bins,
     parse_bin_head,
@@ -77,10 +86,10 @@ class RcnnModel(nn.Module):
         super().__init__()
         lc = config.layers_config
         rc = config.rcnn_config
-        if config.compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype {config.compute_dtype!r} is not ported")
         if mode not in ("train", "val", "test"):
             raise ValueError(f"unknown mode {mode!r}")
+        self.dtype = compute_dtype(config, mode)
+        dt = dict(dtype=self.dtype)
         self.config = config
         self.num_classes = num_classes
         self.bev_z_max = bev_z_max
@@ -98,15 +107,15 @@ class RcnnModel(nn.Module):
         _, _, nbx, nbz, _, _, nbt = self.bins
         k = num_classes
         img_cls = ImgVgg if lc.img_extractor_type == "vgg" else ImgVggPyr
-        self.img_vgg_pyr = img_cls(lc.img_vgg_pyr, conv_kernels=conv_kernels)
+        self.img_vgg_pyr = img_cls(lc.img_vgg_pyr, conv_kernels=conv_kernels, **dt)
         self.crop_kernel = crop_kernel
         c_img = lc.img_vgg_pyr.vgg_conv1[1] if img_cls is ImgVggPyr else lc.img_vgg_pyr.vgg_conv4[1]
 
         c = 6 if rc.rcnn_use_intensity_feature else 5
         for i, fc in enumerate(lc.rcnn_mlp_layers):
-            self.add_module(f"mlp{i}", DenseBN(c, fc.C))
+            self.add_module(f"mlp{i}", DenseBN(c, fc.C, **dt))
             c = fc.C
-        self.pc_pointcnn = PointCNN(lc.rcnn_pc_pointcnn, rpn_fts_channels + c)
+        self.pc_pointcnn = PointCNN(lc.rcnn_pc_pointcnn, rpn_fts_channels + c, **dt)
 
         # Stage-2 PointCNN output points per RoI: the last XConv's P.
         n_out = rc.rcnn_proposal_roi_crop_size
@@ -123,11 +132,11 @@ class RcnnModel(nn.Module):
         for prefix in ("cls_fc", "reg_fc"):
             c = c_fuse
             for i, fc in enumerate(lc.rcnn_fc_layers):
-                self.add_module(f"{prefix}{i}", DenseBN(c, fc.C))
+                self.add_module(f"{prefix}{i}", DenseBN(c, fc.C, **dt))
                 c = fc.C
-        self.cls_logits = DenseBN(c, k + 1, use_bn=False, activation=False)
+        self.cls_logits = DenseBN(c, k + 1, use_bn=False, activation=False, **dt)
         out_dim = (nbx * 2 + nbz * 2 + nbt * 2 + 4) * k
-        self.reg_output = DenseBN(c, out_dim, use_bn=False, activation=False)
+        self.reg_output = DenseBN(c, out_dim, use_bn=False, activation=False, **dt)
 
     def forward(self, proposals, rpn_pts, rpn_intensity, rpn_fg_mask, rpn_fts,
                 img_input, calib_p2,
@@ -142,6 +151,7 @@ class RcnnModel(nn.Module):
         GT box, and proposals_gt (B, n, 8), that box and its class (0
         background, 1..K). `generators`: {"dropout", "path_drop"} in
         training."""
+        check_dtype_mode(self)
         cfg = self.config
         rc = cfg.rcnn_config
         lc = cfg.layers_config
@@ -203,9 +213,10 @@ class RcnnModel(nn.Module):
         else:
             fuse = torch.cat([pc_rois.reshape(nb, -1), img_rois.reshape(nb, -1)], dim=-1)
 
-        cls_logits = self.cls_logits(self._stack("cls_fc", lc.rcnn_fc_layers, fuse, gens))
+        cls_logits = self.cls_logits(self._stack("cls_fc", lc.rcnn_fc_layers, fuse, gens)).float()
         cls_softmax = torch.softmax(cls_logits, dim=-1)  # (Nb, K+1)
-        out = self.reg_output(self._stack("reg_fc", lc.rcnn_fc_layers, fuse, gens)).reshape(nb, k, -1)
+        out = self.reg_output(self._stack("reg_fc", lc.rcnn_fc_layers, fuse, gens)).float()
+        out = out.reshape(nb, k, -1)
         fields = parse_bin_head(out, nbx, nbz, nbt)
 
         predictions = {

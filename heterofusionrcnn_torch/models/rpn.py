@@ -18,6 +18,14 @@ the JAX model's `training` argument (whose default is mode == "train").
 Every random draw comes from a generator the caller passes: "dropout" and
 "path_drop", the names of the flax rng streams.
 
+`config.compute_dtype` "bfloat16" runs the extractors and the dense layers
+in bf16 (mixed precision as flax has it: float32 parameters, float32
+BatchNorm normalisation, see `extractors/layers.py`) in test and val mode,
+the JAX model's `dtype`; the heads are cast to float32 (JAX rpn.py:218,
+:294), so the bin decode, proposals, NMS, KNN and FPS stay float32, and the
+saved stage-1 features (`rpn_fts`, `rpn_img_fts`, `img_feature_map`) are
+bf16. bf16 training is not ported: train mode raises for it.
+
 The non-fixed NMS path (`rpn_fixed_num_proposal_nms=False`, the FG
 resample) is not ported.
 """
@@ -129,6 +137,26 @@ def _pc_in_channels(config: ModelConfig) -> int:
     return 1 if config.rpn_config.rpn_use_intensity_feature else 0
 
 
+def compute_dtype(config: ModelConfig, mode: str) -> Optional[torch.dtype]:
+    """The layers' dtype for `config.compute_dtype`: None (float32) or
+    `torch.bfloat16`, which serves (val and test mode) but does not train."""
+    if config.compute_dtype == "float32":
+        return None
+    if config.compute_dtype != "bfloat16":
+        raise NotImplementedError(f"compute_dtype {config.compute_dtype!r} is not ported")
+    if mode == "train":
+        raise NotImplementedError("compute_dtype 'bfloat16' is ported for val and test mode "
+                                  "only: bf16 training is not ported")
+    return torch.bfloat16
+
+
+def check_dtype_mode(module: nn.Module) -> None:
+    """Raise for a bf16 model put in training (`module.train()`)."""
+    if module.training and module.dtype is not None:
+        raise NotImplementedError("compute_dtype 'bfloat16' does not train: bf16 training "
+                                  "is not ported")
+
+
 class RpnModel(nn.Module):
     """Stage-1 proposal network. `mode`: "train", "val" or "test"."""
 
@@ -145,10 +173,10 @@ class RpnModel(nn.Module):
             raise NotImplementedError("only the PointCNN point extractor is ported")
         if not rpn.rpn_fixed_num_proposal_nms:
             raise NotImplementedError("the non-fixed NMS path is not ported")
-        if config.compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype {config.compute_dtype!r} is not ported")
         if mode not in ("train", "val", "test"):
             raise ValueError(f"unknown mode {mode!r}")
+        self.dtype = compute_dtype(config, mode)
+        dt = dict(dtype=self.dtype)
         self.config = config
         self.num_classes = num_classes
         self.save_rpn_feature = save_rpn_feature
@@ -162,18 +190,18 @@ class RpnModel(nn.Module):
                                rpn.rpn_theta_search_range, rpn.rpn_theta_bin_num)
         _, _, nbx, nbz, _, _, nbt = self.bins
         k = num_classes
-        self.pc_pointcnn = PointCNN(lc.pc_pointcnn, _pc_in_channels(config))
+        self.pc_pointcnn = PointCNN(lc.pc_pointcnn, _pc_in_channels(config), **dt)
         img_cls = ImgVgg if lc.img_extractor_type == "vgg" else ImgVggPyr
-        self.img_vgg_pyr = img_cls(lc.img_vgg_pyr, conv_kernels=conv_kernels)
+        self.img_vgg_pyr = img_cls(lc.img_vgg_pyr, conv_kernels=conv_kernels, **dt)
         c_pc = self.pc_pointcnn.out_channels
         c_img = lc.img_vgg_pyr.vgg_conv1[1] if img_cls is ImgVggPyr else lc.img_vgg_pyr.vgg_conv4[1]
-        self.seg_logits = DenseBN(c_pc, k + 1, use_bn=False, activation=False)
+        self.seg_logits = DenseBN(c_pc, k + 1, use_bn=False, activation=False, **dt)
         c = c_pc + c_img if rpn.rpn_fusion_method == "concat" else c_pc
         for i, fc in enumerate(lc.rpn_fc_layers):
-            self.add_module(f"fc{i}", DenseBN(c, fc.C))
+            self.add_module(f"fc{i}", DenseBN(c, fc.C, **dt))
             c = fc.C
         out_dim = (nbx * 2 + nbz * 2 + nbt * 2 + 4) * k
-        self.fc_output = DenseBN(c, out_dim, use_bn=False, activation=False)
+        self.fc_output = DenseBN(c, out_dim, use_bn=False, activation=False, **dt)
 
     def forward(self, pc_input, img_input, calib_p2, label_segs=None, label_regs=None,
                 label_boxes=None,
@@ -182,6 +210,7 @@ class RpnModel(nn.Module):
         in train and val mode label_segs (B, P) (-1 ignore, 0 background,
         1..K), label_regs (B, P, 7) and, for val's IoUs, label_boxes
         (B, m, 7). `generators`: {"dropout", "path_drop"} in training."""
+        check_dtype_mode(self)
         cfg = self.config
         rpn_cfg = cfg.rpn_config
         training = self.training
@@ -210,7 +239,7 @@ class RpnModel(nn.Module):
         bi = torch.arange(b, device=u.device)[:, None]
         proj_img_fts = img_fts[bi, v, u]  # (B, P, C1)
 
-        seg_logits = self.seg_logits(pc_fts)
+        seg_logits = self.seg_logits(pc_fts).float()
         seg_softmax = torch.softmax(seg_logits, dim=-1)
         seg_preds = seg_softmax.argmax(-1)
         fg_softmax = seg_softmax[..., 1:]
@@ -242,7 +271,7 @@ class RpnModel(nn.Module):
             x = getattr(self, f"fc{i}")(x)
             if training:
                 x = dropout(x, fc.dropout_rate, gens.get("dropout"))
-        out = self.fc_output(x).reshape(b, p, k, -1)
+        out = self.fc_output(x).float().reshape(b, p, k, -1)
         fields = parse_bin_head(out, nbx, nbz, nbt)
 
         predictions = {

@@ -1,5 +1,6 @@
 """Fused 3x3 convolutions of the VGG image branch: conv (or stride-2
-transposed conv) + folded BatchNorm affine + ReLU, NCHW float32.
+transposed conv) + folded BatchNorm affine + ReLU, NCHW, in float32 or in
+bf16 (the bf16 serving path).
 
 Port of heterofusionrcnn_tpu/ops/pallas_conv.py `conv3x3_affine_relu` and
 heterofusionrcnn_tpu/ops/pallas_convtranspose.py
@@ -13,6 +14,13 @@ latter flipped in both spatial axes against flax, see
 through its custom op (`hfr::conv3x3_affine_relu`,
 `hfr::convtranspose3x3_affine_relu`). Any H and W are taken; the TPU's
 tile-fit gate has no counterpart.
+
+The activations' dtype picks the form, as the Pallas kernels'
+`compute_dtype` does: float32 as above, or bf16 (`csrc/conv_bf16.cuh`, the
+entries `hfr_conv3x3_bf16` / `hfr_convt3x3_bf16`): the input and the
+weight rounded to bf16, float32 sums, the float32 affine and ReLU, a bf16
+output. The weight stays a float32 parameter; the op rounds and arranges
+it per call (`bf16_weight_operand`). Any other dtype raises.
 
 The kernels take the weight as their GEMM's B operand, arranged inside the
 op's CUDA implementation once per call from the weight it is given
@@ -30,8 +38,15 @@ from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, one_device, po
 
 _ARGS = [P, P, P, P, P, I, I, I, I, I, I]
 N_ALIGN = 64  # output channels of the arranged weight padded to this (kNAlign)
+BF16_CHUNK = 16  # input channels per k16 step of the bf16 kernels (kKC)
 CONV_KERNEL = CudaKernel("conv.cu", {"hfr_conv3x3": _ARGS}, exact=False)
 CONVT_KERNEL = CudaKernel("convt.cu", {"hfr_convt3x3": _ARGS}, exact=False)
+# The bf16 entries of the same libraries, counted apart.
+CONV_BF16_KERNEL = CudaKernel("conv.cu", {"hfr_conv3x3_bf16": _ARGS}, exact=False,
+                              name="conv_bf16")
+CONVT_BF16_KERNEL = CudaKernel("convt.cu", {"hfr_convt3x3_bf16": _ARGS}, exact=False,
+                               name="convt_bf16")
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(x, weight, scale, shift, cin_dim: int):
@@ -43,8 +58,9 @@ def _check(x, weight, scale, shift, cin_dim: int):
     cout = weight.shape[1 - cin_dim]
     if scale.shape != (cout,) or shift.shape != (cout,):
         raise ValueError(f"scale/shift must be ({cout},)")
-    if any(t.dtype != torch.float32 for t in (x, weight, scale, shift)):
-        raise ValueError("conv kernels take float32")
+    if x.dtype not in DTYPES or any(t.dtype != torch.float32 for t in (weight, scale, shift)):
+        raise ValueError(f"conv kernels take float32 or bf16 activations and float32 weights, "
+                         f"got {x.dtype} and {weight.dtype}")
     if x.numel() >= 2**31:
         raise ValueError("conv kernels take fewer than 2**31 input elements")
     return cout
@@ -111,6 +127,18 @@ def arrange_b(wg: torch.Tensor) -> torch.Tensor:
     return torch.stack([tiles(big), tiles(small)], 1).contiguous()
 
 
+def bf16_weight_operand(w9: torch.Tensor) -> torch.Tensor:
+    """What the bf16 kernels (`csrc/conv_bf16.cuh`) take for a (Cout, Cin,
+    9 taps) weight: (Cin / 16, 9, Cout padded to N_ALIGN, 16) bf16, i.e.
+    [chunk of 16 input channels][tap][output channel][channel in chunk],
+    zeros in the padding."""
+    cout, cin, _ = w9.shape
+    cp = -(-cin // BF16_CHUNK) * BF16_CHUNK
+    w = F.pad(w9, (0, 0, 0, cp - cin, 0, _n_padded(cout) - cout))
+    w = w.reshape(-1, cp // BF16_CHUNK, BF16_CHUNK, 9).permute(1, 3, 0, 2)
+    return w.to(torch.bfloat16).contiguous()
+
+
 def conv_weight_operand(weight: torch.Tensor) -> torch.Tensor:
     """What `csrc/conv.cu` takes for the (Cout, Cin, 3, 3) weight."""
     return arrange_b(conv_gemm_weight(weight))
@@ -124,7 +152,7 @@ def convt_weight_operand(weight: torch.Tensor) -> torch.Tensor:
 def _launch(kernel, fn, x, wt, scale, shift, cout, out_hw, relu):
     b, cin, h, w = x.shape
     x = x.contiguous()
-    out = torch.empty((b, cout, *out_hw), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, cout, *out_hw), dtype=x.dtype, device=x.device)
     kernel.launch(fn, *pointers(x, wt, scale.contiguous(), shift.contiguous(), out),
                   I(b), I(cin), I(cout), I(h), I(w), I(int(relu)))
     return out
@@ -135,8 +163,9 @@ def conv3x3_affine_relu(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tens
     """relu(conv3x3_same(x, weight) * scale + shift).
 
     Args:
-      x (B, Cin, H, W); weight (Cout, Cin, 3, 3); scale, shift (Cout,).
-    Returns: (B, Cout, H, W).
+      x (B, Cin, H, W) float32 or bf16; weight (Cout, Cin, 3, 3), scale,
+      shift (Cout,) float32.
+    Returns: (B, Cout, H, W) in x's dtype.
     """
     _check(x, weight, scale, shift, cin_dim=1)
     return torch.ops.hfr.conv3x3_affine_relu(x, weight, scale, shift, relu)
@@ -153,6 +182,10 @@ def _conv_cuda(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, shift
                relu: bool) -> torch.Tensor:
     one_device(x, weight, scale, shift)
     cout = _check(x, weight, scale, shift, cin_dim=1)
+    if x.dtype == torch.bfloat16:
+        wt = bf16_weight_operand(weight.reshape(cout, x.shape[1], 9))
+        return _launch(CONV_BF16_KERNEL, "hfr_conv3x3_bf16", x, wt, scale, shift, cout,
+                       x.shape[2:], relu)
     return _launch(CONV_KERNEL, "hfr_conv3x3", x, conv_weight_operand(weight), scale, shift,
                    cout, x.shape[2:], relu)
 
@@ -164,9 +197,20 @@ def _conv_fake(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, shift
     return x.new_empty((x.shape[0], weight.shape[0], *x.shape[2:]))
 
 
+def _bf16_operands(x, weight):
+    """bf16 activations widened to float32 and the weight rounded to bf16
+    and widened: the products of the bf16 forms, summed in float32
+    (`preferred_element_type=f32`)."""
+    return x.float(), weight.to(torch.bfloat16).float()
+
+
 def conv3x3_affine_relu_plain(x, weight, scale, shift, relu: bool = True):
+    """In x's dtype: float32, or bf16 rounded where the bf16 kernel rounds."""
+    dtype = x.dtype
+    if dtype == torch.bfloat16:
+        x, weight = _bf16_operands(x, weight)
     y = F.conv2d(x, weight, padding=1) * scale[:, None, None] + shift[:, None, None]
-    return F.relu(y) if relu else y
+    return (F.relu(y) if relu else y).to(dtype)
 
 
 def convtranspose3x3_affine_relu(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
@@ -174,9 +218,10 @@ def convtranspose3x3_affine_relu(x: torch.Tensor, weight: torch.Tensor, scale: t
     """relu(convtranspose3x3_stride2_same(x, weight) * scale + shift).
 
     Args:
-      x (B, Cin, H, W); weight (Cin, Cout, 3, 3), the `nn.ConvTranspose2d`
-      weight of `layers.ConvTransposeBNRelu`; scale, shift (Cout,).
-    Returns: (B, Cout, 2H, 2W).
+      x (B, Cin, H, W) float32 or bf16; weight (Cin, Cout, 3, 3), the
+      `nn.ConvTranspose2d` weight of `layers.ConvTransposeBNRelu`; scale,
+      shift (Cout,) float32.
+    Returns: (B, Cout, 2H, 2W) in x's dtype.
     """
     _check(x, weight, scale, shift, cin_dim=0)
     return torch.ops.hfr.convtranspose3x3_affine_relu(x, weight, scale, shift, relu)
@@ -195,6 +240,10 @@ def _convt_cuda(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, shif
     one_device(x, weight, scale, shift)
     cout = _check(x, weight, scale, shift, cin_dim=0)
     h, w = x.shape[2:]
+    if x.dtype == torch.bfloat16:
+        wt = bf16_weight_operand(weight.reshape(x.shape[1], cout, 9).permute(1, 0, 2))
+        return _launch(CONVT_BF16_KERNEL, "hfr_convt3x3_bf16", x, wt, scale, shift, cout,
+                       (2 * h, 2 * w), relu)
     return _launch(CONVT_KERNEL, "hfr_convt3x3", x, convt_weight_operand(weight), scale, shift,
                    cout, (2 * h, 2 * w), relu)
 
@@ -208,8 +257,12 @@ def _convt_fake(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, shif
 
 def convtranspose3x3_affine_relu_plain(x, weight, scale, shift, relu: bool = True):
     """The transposed conv as `layers.ConvTransposeBNRelu` runs it (padding
-    0, output 2H + 1, last row and column cropped), then the affine."""
+    0, output 2H + 1, last row and column cropped), then the affine; in
+    x's dtype as `conv3x3_affine_relu_plain`."""
+    dtype = x.dtype
+    if dtype == torch.bfloat16:
+        x, weight = _bf16_operands(x, weight)
     h, w = x.shape[2:]
     y = F.conv_transpose2d(x, weight, stride=2)[:, :, : 2 * h, : 2 * w]
     y = y * scale[:, None, None] + shift[:, None, None]
-    return F.relu(y) if relu else y
+    return (F.relu(y) if relu else y).to(dtype)

@@ -10,8 +10,9 @@ The feature rows are gathered by `crop_gather` when the caller asks for it
 (`crop_kernel=True`, the port's counterpart of the JAX package's
 `HFR_PALLAS_CROP=1`, off by default there too), through the custom op
 `hfr::crop_gather`: on CUDA tensors it launches the kernel of
-`csrc/crop.cu`, on CPU tensors it runs the plain indexing gather
-`crop_gather_plain`, which is also what runs with the switch off.
+`csrc/crop.cu` (its float32 or its bf16 entry, by the features' dtype),
+on CPU tensors it runs the plain indexing gather `crop_gather_plain`,
+which is also what runs with the switch off.
 """
 
 from __future__ import annotations
@@ -22,6 +23,11 @@ from heterofusionrcnn_torch.core.geometry import points_in_box_3d
 from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, one_device, pointers
 
 CROP_KERNEL = CudaKernel("crop.cu", {"hfr_crop_gather": [P, P, P, P, I, I, I, I]}, exact=False)
+# The bf16 entry of the same library, counted apart.
+CROP_BF16_KERNEL = CudaKernel("crop.cu", {"hfr_crop_gather_bf16": [P, P, P, P, I, I, I, I]},
+                              exact=False, name="crop_bf16")
+# Elements of one 16-byte vector, the unit the kernel moves, by dtype.
+_VEC = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def crop_gather(src: torch.Tensor, idx: torch.Tensor, box_ind: torch.Tensor) -> torch.Tensor:
@@ -29,10 +35,11 @@ def crop_gather(src: torch.Tensor, idx: torch.Tensor, box_ind: torch.Tensor) -> 
     heterofusionrcnn_tpu/ops/pallas_crop.py `crop_gather`).
 
     Args:
-      src (B, N, C) float32; idx (Nb, R) int in [0, N); box_ind (Nb,) int in
-      [0, B). Indices are not range-checked on the card, which takes
-      C % 4 == 0 and a 16-byte aligned `src` (whole float4 rows).
-    Returns: (Nb, R, C).
+      src (B, N, C) float32 or bf16; idx (Nb, R) int in [0, N); box_ind
+      (Nb,) int in [0, B). Indices are not range-checked on the card, which
+      takes rows of whole 16-byte vectors (C % 4 == 0 in float32, C % 8 == 0
+      in bf16) and a 16-byte aligned `src`.
+    Returns: (Nb, R, C) in src's dtype.
     """
     return torch.ops.hfr.crop_gather(src, idx, box_ind)
 
@@ -53,8 +60,10 @@ def _crop_cuda(src: torch.Tensor, idx: torch.Tensor, box_ind: torch.Tensor) -> t
     one_device(src, idx, box_ind)
     b, n, c = src.shape
     nb, rows = idx.shape
-    if src.dtype != torch.float32 or c % 4:
-        raise ValueError(f"crop kernel takes float32 features with C % 4 == 0, got {src.dtype}, C={c}")
+    vec = _VEC.get(src.dtype)
+    if vec is None or c % vec:
+        raise ValueError(f"crop kernel takes float32 features with C % 4 == 0 or bf16 with "
+                         f"C % 8 == 0, got {src.dtype}, C={c}")
     if box_ind.shape != (nb,):
         raise ValueError(f"box_ind must be ({nb},), got {tuple(box_ind.shape)}")
     src = src.contiguous()
@@ -62,9 +71,13 @@ def _crop_cuda(src: torch.Tensor, idx: torch.Tensor, box_ind: torch.Tensor) -> t
     ind32 = box_ind.to(torch.int32).contiguous()
     if src.data_ptr() % 16:
         raise ValueError("crop kernel takes a 16-byte aligned source")
-    out = torch.empty((nb, rows, c), dtype=torch.float32, device=src.device)
-    CROP_KERNEL.launch("hfr_crop_gather", *pointers(src, idx32, ind32, out),
-                       I(nb), I(n), I(rows), I(c))
+    out = torch.empty((nb, rows, c), dtype=src.dtype, device=src.device)
+    if src.dtype == torch.bfloat16:
+        CROP_BF16_KERNEL.launch("hfr_crop_gather_bf16", *pointers(src, idx32, ind32, out),
+                                I(nb), I(n), I(rows), I(c))
+    else:
+        CROP_KERNEL.launch("hfr_crop_gather", *pointers(src, idx32, ind32, out),
+                           I(nb), I(n), I(rows), I(c))
     return out
 
 

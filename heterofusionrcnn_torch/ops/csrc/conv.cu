@@ -45,7 +45,12 @@
 // Bound: operations at every VGG width but the first layer (bytes, 3 input
 // channels): 2 * 9 * Cin * Cout operations per output pixel, each one
 // three TF32 tensor-core products.
+//
+// The bf16 form (`hfr_conv3x3_bf16`, the bf16 serving path) is the kernel
+// of conv_bf16.cuh: bf16 activations and weight on `mma.sync`, float32
+// sums, a bf16 output.
 
+#include "conv_bf16.cuh"
 #include "conv_common.cuh"
 
 namespace {
@@ -248,6 +253,19 @@ int hfr_conv3x3(const float* x, const float* wt, const float* scale, const float
     return static_cast<int>(cudaErrorInvalidValue);
   if (cout <= 32) return launch<32>(x, wt, scale, shift, out, b, cin, cout, h, w, relu, s);
   return launch<64>(x, wt, scale, shift, out, b, cin, cout, h, w, relu, s);
+}
+
+// The bf16 form (conv_bf16.cuh): x (B, Cin, H, W) bf16, wt the arranged bf16
+// weight of `ops/conv.py` (`bf16_weight_operand`), scale/shift float32; out
+// (B, Cout, H, W) bf16.
+int hfr_conv3x3_bf16(const void* x, const void* wt, const float* scale, const float* shift,
+                     void* out, int b, int cin, int cout, int h, int w, int relu, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || cin <= 0 || cout <= 0 || h <= 0 || w <= 0 || b > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (cout <= 32)
+    return hfr::bf16conv::launch<false, 32>(x, wt, scale, shift, out, b, cin, cout, h, w, relu, s);
+  return hfr::bf16conv::launch<false, 64>(x, wt, scale, shift, out, b, cin, cout, h, w, relu, s);
 }
 
 }  // extern "C"

@@ -60,8 +60,13 @@
 // Shapes: K in {4, 8, 12}; Cf up to 256; any Cp (Cin up to 1536 on the
 // main path); D a multiple of 4 (the arranged weight pads it to 128); any
 // number of queries (edges masked); with and without the X-transform.
+//
+// The bf16 form (`hfr_xconv_bf16`, `hfr_xconv_epilogue_bf16`: the Pallas
+// kernel's `compute_dtype=jnp.bfloat16`, the bf16 serving path) is the
+// kernel of xconv_bf16.cuh.
 
 #include "conv_common.cuh"
+#include "xconv_bf16.cuh"
 
 #include <math.h>
 
@@ -718,6 +723,57 @@ int hfr_xconv_epilogue(const float* partial, const float* sc, const float* bc, f
                          static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(partial), sc, bc, reinterpret_cast<float4*>(out), splits,
       nq, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 form (xconv_bf16.cuh): fts (B, N, Cp) bf16, the coordinates and
+// the weights float32 (rounded to bf16 in the kernel), wt the arranged bf16
+// Wc of `ops/xconv.py` (`xconv_weight_operand_bf16`, D padded to dp, a
+// multiple of 256); out (B, P, D) bf16 with splits == 1, else the float32
+// partial sums into partial for hfr_xconv_epilogue_bf16. vec8: Cp % 8 == 0
+// and fts 16-byte aligned (16-byte gathers).
+int hfr_xconv_bf16(const float* pts, const void* fts, const float* qrs, const int* idx,
+                   const float* w1, const float* s1, const float* b1, const float* w2,
+                   const float* s2, const float* b2, const float* wx0, const float* sx0,
+                   const float* bx0, const float* wx1, const float* sx1, const float* bx1,
+                   const float* wx2, const float* sx2, const float* bx2, const void* wt,
+                   const float* sc, const float* bc, void* out, float* partial, int b, int n,
+                   int p, int k, int cf, int cp, int d, int dp, int with_x, int splits,
+                   int vec8, void* stream) {
+  namespace x16 = hfr::bf16xconv;
+  const int nch = (cf + x16::kKC - 1) / x16::kKC + (cp + x16::kKC - 1) / x16::kKC;
+  if (d % 4 != 0 || dp % x16::kDAlign != 0 || dp < d || cf < 1 || cf > x16::kMaxCf ||
+      splits < 1 || splits > nch || splits > 65535 || b * p < 1 ||
+      (splits > 1 && partial == nullptr) || (splits == 1 && out == nullptr) ||
+      (cp > 0 && fts == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  x16::Args a{pts, static_cast<const __nv_bfloat16*>(fts), qrs, idx, w1, s1, b1, w2, s2, b2,
+              wx0, sx0, bx0, wx1, sx1, bx1, wx2, sx2, bx2,
+              static_cast<const __nv_bfloat16*>(wt), sc, bc, static_cast<__nv_bfloat16*>(out),
+              partial, b, n, p, cf, cp, d, dp, with_x, splits, vec8};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (k) {
+    case 4:
+      return x16::launch<4>(a, s);
+    case 8:
+      return x16::launch<8>(a, s);
+    case 12:
+      return x16::launch<12>(a, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// out (B*P, D) bf16 = BNc(ELU(sum of the splits' float32 partial sums)).
+int hfr_xconv_epilogue_bf16(const float* partial, const float* sc, const float* bc, void* out,
+                            int splits, int nq, int d, void* stream) {
+  if (d % 4 != 0 || splits < 1 || nq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n4 = (size_t)nq * d / 4;
+  const int threads = 256;
+  hfr::bf16xconv::xconv_split_epilogue_bf16<<<(unsigned)((n4 + threads - 1) / threads), threads,
+                                              0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(partial), sc, bc, static_cast<__nv_bfloat162*>(out),
+      splits, nq, d);
   return static_cast<int>(cudaGetLastError());
 }
 

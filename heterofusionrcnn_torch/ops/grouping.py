@@ -261,7 +261,8 @@ def knn_sorted(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
 
 
 def group_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, N, C) x (B, P, S) indices -> (B, P, S, C)."""
+    """(B, N, C) x (B, P, S) indices -> (B, P, S, C), in points' dtype
+    (bf16 features are gathered unchanged, exactly as JAX's gather)."""
     b, n, c = points.shape
     _, p, s = idx.shape
     rows = (

@@ -16,7 +16,11 @@ this registration (`runtime.export.load_exported` imports it).
 
 Each op runs the kernel on CUDA tensors and the plain version on CPU
 tensors, chosen by the dispatcher's device key, and has a fake function
-that gives its outputs' shapes and dtypes.
+that gives its outputs' shapes and dtypes. `fused_xconv`,
+`xconv_split_epilogue`, `crop_gather` and the two convs also have a bf16
+form (the bf16 serving path), a second C entry of the same source
+(`*_bf16`, counted apart), picked by the input's dtype (the XConv's
+`compute_dtype`, the epilogue's `out_dtype`); any other dtype raises.
 """
 
 from __future__ import annotations

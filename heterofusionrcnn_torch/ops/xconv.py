@@ -19,6 +19,14 @@ changes; weights built without it are arranged per call. `plan_xconv`
 chooses, inside the op on the card it runs on, how many blocks split the
 contraction of the few-query layers; a split's partial sums go through
 `hfr::xconv_split_epilogue`.
+
+`compute_dtype` bf16 is the Pallas kernel's `compute_dtype=jnp.bfloat16`
+(the bf16 serving path): the op then takes bf16 features and returns bf16,
+the card runs the bf16 entry of `csrc/xconv.cu` (`hfr_xconv_bf16`:
+`mma.sync` bf16 products, float32 sums, Wc arranged by
+`xconv_weight_operand_bf16` and kept in `XConvWeights.wc_operand_bf16`) and
+the CPU the plain version's bf16 form; they round to bf16 exactly where
+the Pallas kernel casts to its compute dtype.
 """
 
 from __future__ import annotations
@@ -37,6 +45,13 @@ XCONV_KERNEL = CudaKernel("xconv.cu", {"hfr_xconv": [P] * 24 + [I] * 11}, exact=
 # The second kernel of the split path, in the same library, counted apart.
 XCONV_EPILOGUE_KERNEL = CudaKernel("xconv.cu", {"hfr_xconv_epilogue": [P] * 4 + [I] * 3},
                                    exact=False, name="xconv_epilogue")
+# The bf16 entries of the same library, counted apart.
+XCONV_BF16_KERNEL = CudaKernel("xconv.cu", {"hfr_xconv_bf16": [P] * 24 + [I] * 11},
+                               exact=False, name="xconv_bf16")
+XCONV_EPILOGUE_BF16_KERNEL = CudaKernel(
+    "xconv.cu", {"hfr_xconv_epilogue_bf16": [P] * 4 + [I] * 3}, exact=False,
+    name="xconv_epilogue_bf16")
+DTYPES = (torch.float32, torch.bfloat16)
 
 _KERNEL_K = (4, 8, 12)
 MAX_CF = 256          # lifted channels the kernel stages (kMaxCf)
@@ -47,6 +62,17 @@ D_ALIGN = 128         # output channels of the arranged weight padded to this (k
 MIN_SPLIT_CHUNKS = 4  # chunks a split takes at least
 MAX_SPLITS = 16
 H100_SMS = 132
+# The bf16 kernel (xconv_bf16.cuh): 64 queries x `bf16_block_d(K)` output
+# channels a block, contraction chunks of 16 channels, Wc's D padded to
+# BF16_D_ALIGN.
+BF16_CHUNK = 16       # kKC
+BF16_D_ALIGN = 256    # kDAlign
+
+
+def bf16_block_d(k: int) -> int:
+    """Output channels a block of the bf16 kernel takes (`block_n`): 256,
+    or 128 at K = 12, whose Wc stage would not fit shared memory at 256."""
+    return 128 if k == 12 else 256
 
 
 @dataclass
@@ -77,6 +103,7 @@ class XConvWeights:
     sx2: Optional[torch.Tensor] = None
     bx2: Optional[torch.Tensor] = None
     wc_operand: Optional[torch.Tensor] = None  # xconv_weight_operand(wc, Cf), on the card
+    wc_operand_bf16: Optional[torch.Tensor] = None  # xconv_weight_operand_bf16(wc, Cf)
 
     @property
     def with_x(self) -> bool:
@@ -122,6 +149,24 @@ def xconv_weight_operand(wc: torch.Tensor, cf: int) -> torch.Tensor:
     return arrange_b(xconv_gemm_weight(wc, cf))
 
 
+def xconv_weight_operand_bf16(wc: torch.Tensor, cf: int) -> torch.Tensor:
+    """What the bf16 kernel takes for Wc (K, Cin, D), Cin = Cf + Cp: Wc
+    (composed in float32) rounded to bf16 as (chunks, K, Dp, 16), i.e.
+    [chunk of 16 channels][neighbour][output channel][channel in chunk],
+    the lifted chunks first, lifted and feature channels each padded to a
+    multiple of 16 and D to BF16_D_ALIGN, with zeros."""
+    k, cin, d = wc.shape
+    cp = cin - cf
+    nf = -(-cf // BF16_CHUNK)
+    nc = nf + -(-cp // BF16_CHUNK)
+    dp = -(-d // BF16_D_ALIGN) * BF16_D_ALIGN
+    w = wc.new_zeros(k, BF16_CHUNK * nc, dp)
+    w[:, :cf, :d] = wc[:, :cf]
+    w[:, BF16_CHUNK * nf:BF16_CHUNK * nf + cp, :d] = wc[:, cf:]
+    w = w.reshape(k, nc, BF16_CHUNK, dp).permute(1, 0, 3, 2)
+    return w.to(torch.bfloat16).contiguous()
+
+
 @dataclass(frozen=True)
 class XConvPlan:
     """The kernel's grid: query tiles x channel tiles x contraction splits."""
@@ -135,19 +180,26 @@ class XConvPlan:
         return self.qtiles * self.ntiles * self.splits
 
 
-def plan_xconv(nq: int, k: int, cf: int, cp: int, d: int, num_sms: int = H100_SMS) -> XConvPlan:
+def plan_xconv(nq: int, k: int, cf: int, cp: int, d: int, num_sms: int = H100_SMS,
+               compute_dtype: torch.dtype = torch.float32) -> XConvPlan:
     """Tiles of BLOCK_Q queries x BLOCK_D channels, one block each (a block
     fills an SM). Where they number fewer than the SMs, the contraction's
     8-channel chunks are split over the fewest blocks that fill every SM,
     each split keeping at least MIN_SPLIT_CHUNKS chunks and at most
     MAX_SPLITS splits (`split_chunks` cuts them; the schedule of
     `chunk_order` gives each its share of lifted chunks). `k` does not
-    change the plan: every neighbour of a chunk stays in one split."""
-    del k
+    change the float32 plan: every neighbour of a chunk stays in one split.
+    The bf16 kernel's tiles are BLOCK_Q x `bf16_block_d(k)` and its chunks
+    16 channels wide, taken in order (lifted chunks first)."""
+    if compute_dtype == torch.bfloat16:
+        block_d, align, chunk = bf16_block_d(k), BF16_D_ALIGN, BF16_CHUNK
+    else:
+        block_d, align, chunk = BLOCK_D, D_ALIGN, CHUNK
     qtiles = -(-nq // BLOCK_Q)
-    ntiles = -(-(-(-d // D_ALIGN) * D_ALIGN) // BLOCK_D)
+    ntiles = -(-(-(-d // align) * align) // block_d)
     base = qtiles * ntiles
-    most = max(1, min(MAX_SPLITS, (_chunks(cf) + _chunks(cp)) // MIN_SPLIT_CHUNKS))
+    nch = -(-cf // chunk) + -(-cp // chunk)
+    most = max(1, min(MAX_SPLITS, nch // MIN_SPLIT_CHUNKS))
     splits = min(most, -(-num_sms // base)) if base < num_sms else 1
     return XConvPlan(qtiles, ntiles, splits)
 
@@ -164,29 +216,36 @@ def fused_xconv(
     qrs: torch.Tensor,
     idx: torch.Tensor,
     w: XConvWeights,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """XConv forward at inference.
 
     Args:
-      pts: (B, N, 3) source points; fts: (B, N, Cp) source features or None.
+      pts: (B, N, 3) source points; fts: (B, N, Cp) source features in
+        `compute_dtype`, or None.
       qrs: (B, P, 3) query points; idx: (B, P, K) int32 neighbour indices.
-      w: folded weights; `w.wc_operand`, where set, must be
-        `xconv_weight_operand(w.wc, Cf)` (it is arranged here otherwise).
+      w: folded float32 weights; `w.wc_operand` (`w.wc_operand_bf16` in
+        bf16), where set, must be `xconv_weight_operand(w.wc, Cf)`
+        (`xconv_weight_operand_bf16`; arranged here otherwise).
+      compute_dtype: float32 or bf16.
     Returns:
-      (B, P, D) float32.
+      (B, P, D) in `compute_dtype`.
     """
-    return torch.ops.hfr.fused_xconv(pts, fts, qrs, idx, [getattr(w, f.name) for f in fields(w)])
+    return torch.ops.hfr.fused_xconv(pts, fts, qrs, idx, [getattr(w, f.name) for f in fields(w)],
+                                     compute_dtype)
 
 
 @torch.library.custom_op("hfr::fused_xconv", mutates_args=(), device_types="cpu")
 def _xconv_op(pts: torch.Tensor, fts: Optional[torch.Tensor], qrs: torch.Tensor,
-              idx: torch.Tensor, weights: List[Optional[torch.Tensor]]) -> torch.Tensor:
-    return fused_xconv_plain(pts, fts, qrs, idx, XConvWeights(*weights))
+              idx: torch.Tensor, weights: List[Optional[torch.Tensor]],
+              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return fused_xconv_plain(pts, fts, qrs, idx, XConvWeights(*weights), compute_dtype)
 
 
 @_xconv_op.register_kernel("cuda")
 def _xconv_cuda(pts: torch.Tensor, fts: Optional[torch.Tensor], qrs: torch.Tensor,
-                idx: torch.Tensor, weights: List[Optional[torch.Tensor]]) -> torch.Tensor:
+                idx: torch.Tensor, weights: List[Optional[torch.Tensor]],
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     w = XConvWeights(*weights)
     one_device(pts, fts, qrs, idx, *weights)
     b, n, _ = pts.shape
@@ -199,87 +258,116 @@ def _xconv_cuda(pts: torch.Tensor, fts: Optional[torch.Tensor], qrs: torch.Tenso
                          f"got K={k} D={d} Cf={cf}")
     if w.wc.shape[1] != cf + cp:
         raise ValueError(f"weights for Cin={w.wc.shape[1]}, inputs give {cf + cp}")
-    for t in [pts, fts, qrs] + weights:
-        if t is not None and t.dtype != torch.float32:
-            raise ValueError(f"xconv kernel takes float32, got {t.dtype}")
+    _check_dtypes(pts, fts, qrs, w, compute_dtype)
     nq = b * p
-    plan = plan_xconv(nq, k, cf, cp, d, sm_count(pts.device))
+    plan = plan_xconv(nq, k, cf, cp, d, sm_count(pts.device), compute_dtype)
     if plan.splits > 1:
         partial = torch.empty((plan.splits, nq, d), dtype=torch.float32, device=pts.device)
-        _launch_xconv(pts, fts, qrs, idx, w, None, partial, plan.splits)
-        return xconv_split_epilogue(partial, w.sc, w.bc).reshape(b, p, d)
-    out = torch.empty((b, p, d), dtype=torch.float32, device=pts.device)
-    _launch_xconv(pts, fts, qrs, idx, w, out, None, 1)
+        _launch_xconv(pts, fts, qrs, idx, w, None, partial, plan.splits, compute_dtype)
+        return xconv_split_epilogue(partial, w.sc, w.bc, compute_dtype).reshape(b, p, d)
+    out = torch.empty((b, p, d), dtype=compute_dtype, device=pts.device)
+    _launch_xconv(pts, fts, qrs, idx, w, out, None, 1, compute_dtype)
     return out
 
 
 @_xconv_op.register_fake
 def _xconv_fake(pts: torch.Tensor, fts: Optional[torch.Tensor], qrs: torch.Tensor,
-                idx: torch.Tensor, weights: List[Optional[torch.Tensor]]) -> torch.Tensor:
+                idx: torch.Tensor, weights: List[Optional[torch.Tensor]],
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     one_device(pts, fts, qrs, idx, *weights)
     wc = XConvWeights(*weights).wc
-    return pts.new_empty((idx.shape[0], idx.shape[1], wc.shape[2]))
+    return pts.new_empty((idx.shape[0], idx.shape[1], wc.shape[2]), dtype=compute_dtype)
 
 
-def _launch_xconv(pts, fts, qrs, idx, w: XConvWeights, out, partial, splits: int) -> None:
-    """One launch of `csrc/xconv.cu`: the result into `out` (splits == 1)
-    or the splits' raw partial sums into `partial`."""
+def _check_dtypes(pts, fts, qrs, w: XConvWeights, compute_dtype) -> None:
+    """Coordinates and weights float32, features in the compute dtype."""
+    if compute_dtype not in DTYPES:
+        raise ValueError(f"xconv kernel computes in float32 or bf16, got {compute_dtype}")
+    for name, t in vars(w).items():
+        if t is not None and name != "wc_operand_bf16" and t.dtype != torch.float32:
+            raise ValueError(f"xconv kernel takes float32 weights, got {t.dtype} for {name}")
+    for t in (pts, qrs):
+        if t.dtype != torch.float32:
+            raise ValueError(f"xconv kernel takes float32 coordinates, got {t.dtype}")
+    if fts is not None and fts.dtype != compute_dtype:
+        raise ValueError(f"xconv kernel in {compute_dtype} takes features in it, got {fts.dtype}")
+
+
+def _launch_xconv(pts, fts, qrs, idx, w: XConvWeights, out, partial, splits: int,
+                  compute_dtype: torch.dtype) -> None:
+    """One launch of `csrc/xconv.cu`, its float32 entry (`hfr_xconv`, Wc
+    as `xconv_weight_operand`) or its bf16 entry (`hfr_xconv_bf16`: bf16
+    features, the float32 weights rounded to bf16 in the kernel, Wc as
+    `xconv_weight_operand_bf16`): the result into `out` (splits == 1) or
+    the splits' float32 partial sums into `partial`."""
     b, n, _ = pts.shape
     _, p, k = idx.shape
     cf = w.w1.shape[1]
     cp = 0 if fts is None else fts.shape[-1]
     pts, qrs, idx = pts.contiguous(), qrs.contiguous(), idx.to(torch.int32).contiguous()
     fts = None if fts is None else fts.contiguous()
-    wt = w.wc_operand if w.wc_operand is not None else xconv_weight_operand(w.wc, cf)
+    if compute_dtype == torch.bfloat16:
+        wt = w.wc_operand_bf16
+        wt = xconv_weight_operand_bf16(w.wc, cf) if wt is None else wt
+        kernel, fn, dp = XCONV_BF16_KERNEL, "hfr_xconv_bf16", wt.shape[2]
+    else:
+        wt = w.wc_operand if w.wc_operand is not None else xconv_weight_operand(w.wc, cf)
+        kernel, fn, dp = XCONV_KERNEL, "hfr_xconv", wt.shape[2] * 8
     ws = [w.w1, w.s1, w.b1, w.w2, w.s2, w.b2, w.wx0, w.sx0, w.bx0,
           w.wx1, w.sx1, w.bx1, w.wx2, w.sx2, w.bx2, wt, w.sc, w.bc]
     ws = [None if t is None else t.contiguous() for t in ws]
-    vec4 = int(fts is not None and cp % 4 == 0 and fts.data_ptr() % 16 == 0)
-    XCONV_KERNEL.launch(
-        "hfr_xconv", *pointers(pts, fts, qrs, idx, *ws, out, partial),
-        I(b), I(n), I(p), I(k), I(cf), I(cp), I(w.wc.shape[2]), I(wt.shape[2] * 8),
-        I(int(w.with_x)), I(splits), I(vec4),
+    # Whole 16-byte gathers: rows of a multiple of 16 bytes, aligned.
+    vec = int(fts is not None and cp * fts.element_size() % 16 == 0 and fts.data_ptr() % 16 == 0)
+    kernel.launch(
+        fn, *pointers(pts, fts, qrs, idx, *ws, out, partial),
+        I(b), I(n), I(p), I(k), I(cf), I(cp), I(w.wc.shape[2]), I(dp),
+        I(int(w.with_x)), I(splits), I(vec),
     )
 
 
-def xconv_split_epilogue(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tensor) -> torch.Tensor:
-    """BNc(ELU(sum of the splits)) of (S, M, D) partial sums -> (M, D): the
-    second kernel of the split path on CUDA tensors (splits summed in
-    order), the plain version on CPU tensors (`hfr::xconv_split_epilogue`)."""
-    return torch.ops.hfr.xconv_split_epilogue(partial, sc, bc)
+def xconv_split_epilogue(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tensor,
+                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """BNc(ELU(sum of the splits)) of (S, M, D) float32 partial sums -> (M,
+    D) in `out_dtype` (float32, or bf16 after the bf16 kernel): the second
+    kernel of the split path on CUDA tensors (splits summed in order), the
+    plain version on CPU tensors (`hfr::xconv_split_epilogue`)."""
+    return torch.ops.hfr.xconv_split_epilogue(partial, sc, bc, out_dtype)
 
 
 @torch.library.custom_op("hfr::xconv_split_epilogue", mutates_args=(), device_types="cpu")
-def _epilogue_op(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tensor) -> torch.Tensor:
-    return xconv_split_epilogue_plain(partial, sc, bc)
+def _epilogue_op(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tensor,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return xconv_split_epilogue_plain(partial, sc, bc, out_dtype)
 
 
 @_epilogue_op.register_kernel("cuda")
-def _epilogue_cuda(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tensor) -> torch.Tensor:
+def _epilogue_cuda(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tensor,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     one_device(partial, sc, bc)
     s, m, d = partial.shape
-    if d % 4 or partial.dtype != torch.float32:
-        raise ValueError(f"split epilogue takes float32 with D % 4 == 0, got D={d}")
-    out = torch.empty((m, d), dtype=torch.float32, device=partial.device)
-    XCONV_EPILOGUE_KERNEL.launch(
-        "hfr_xconv_epilogue", *pointers(partial.contiguous(), sc.contiguous(), bc.contiguous(),
-                                        out),
-        I(s), I(m), I(d),
-    )
+    if d % 4 or partial.dtype != torch.float32 or out_dtype not in DTYPES:
+        raise ValueError(f"split epilogue takes float32 with D % 4 == 0 into float32 or bf16, "
+                         f"got {partial.dtype}, D={d}, {out_dtype}")
+    out = torch.empty((m, d), dtype=out_dtype, device=partial.device)
+    kernel, fn = ((XCONV_EPILOGUE_BF16_KERNEL, "hfr_xconv_epilogue_bf16")
+                  if out_dtype == torch.bfloat16 else (XCONV_EPILOGUE_KERNEL, "hfr_xconv_epilogue"))
+    kernel.launch(fn, *pointers(partial.contiguous(), sc.contiguous(), bc.contiguous(), out),
+                  I(s), I(m), I(d))
     return out
 
 
 @_epilogue_op.register_fake
-def _epilogue_fake(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tensor) -> torch.Tensor:
+def _epilogue_fake(partial: torch.Tensor, sc: torch.Tensor, bc: torch.Tensor,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     one_device(partial, sc, bc)
-    return partial.new_empty(partial.shape[1:])
+    return partial.new_empty(partial.shape[1:], dtype=out_dtype)
 
 
-def xconv_split_epilogue_plain(partial, sc, bc) -> torch.Tensor:
+def xconv_split_epilogue_plain(partial, sc, bc, out_dtype=torch.float32) -> torch.Tensor:
     out = partial[0]
     for z in range(1, partial.shape[0]):
         out = out + partial[z]
-    return F_.elu(out) * sc + bc
+    return (F_.elu(out) * sc + bc).to(out_dtype)
 
 
 def xconv_gemm_operand(pts, fts, qrs, idx, w: XConvWeights) -> torch.Tensor:
@@ -300,10 +388,43 @@ def xconv_gemm_operand(pts, fts, qrs, idx, w: XConvWeights) -> torch.Tensor:
     return fin
 
 
-def fused_xconv_plain(pts, fts, qrs, idx, w: XConvWeights) -> torch.Tensor:
-    """Plain PyTorch version of the fused XConv (same algebra as the kernel
-    and as `pallas_xconv.fused_xconv`)."""
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest even) and widened back to float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def xconv_gemm_operand_bf16(pts, fts, qrs, idx, w: XConvWeights) -> torch.Tensor:
+    """`xconv_gemm_operand` in the bf16 form, rounded to bf16 exactly where
+    `pallas_xconv._xconv_kernel` casts to its compute dtype (float32 sums of
+    bf16 products, float32 affines): the local coordinates before lift-1
+    and X_0, the lift-1 output before lift-2, X_0 and X_1 before the next
+    depthwise, and the (X @ in) stack; every weight once. The lifted
+    features f2 and X_2 stay float32, the gathered features are bf16."""
     b, p, k = idx.shape
+    local = _bf16(group_point(pts, idx) - qrs[:, :, None, :])  # (B, P, K, 3)
+    h = _bf16(F_.elu(local @ _bf16(w.w1)) * w.s1 + w.b1)
+    f2 = F_.elu(h @ _bf16(w.w2)) * w.s2 + w.b2
+    fin = f2 if fts is None else torch.cat([f2, group_point(fts, idx).float()], dim=-1)
+    if w.with_x:
+        x0 = _bf16(F_.elu(local.reshape(b, p, 3 * k) @ _bf16(w.wx0)) * w.sx0 + w.bx0)
+        x1 = torch.einsum("bpkc,kcj->bpcj", x0.reshape(b, p, k, k), _bf16(w.wx1))
+        x1 = _bf16(F_.elu(x1.reshape(b, p, k * k)) * w.sx1 + w.bx1)
+        x2 = torch.einsum("bpkc,kcj->bpcj", x1.reshape(b, p, k, k), _bf16(w.wx2))
+        x2 = x2.reshape(b, p, k * k) * w.sx2 + w.bx2
+        fin = torch.einsum("bpkj,bpjc->bpkc", x2.reshape(b, p, k, k), fin)
+    return _bf16(fin)
+
+
+def fused_xconv_plain(pts, fts, qrs, idx, w: XConvWeights,
+                      compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of the fused XConv (same algebra as the kernel
+    and as `pallas_xconv.fused_xconv`), in float32 or in the bf16 form
+    (`xconv_gemm_operand_bf16`; the output rounded to bf16)."""
+    b, p, k = idx.shape
+    if compute_dtype == torch.bfloat16:
+        fin = xconv_gemm_operand_bf16(pts, fts, qrs, idx, w)
+        out = fin.reshape(b, p, -1) @ _bf16(w.wc).reshape(-1, w.wc.shape[2])
+        return (F_.elu(out) * w.sc + w.bc).to(torch.bfloat16)
     fin = xconv_gemm_operand(pts, fts, qrs, idx, w)
     cin = fin.shape[-1]
     out = fin.reshape(b, p, k * cin) @ w.wc.reshape(k * cin, -1)

@@ -132,6 +132,14 @@ def _time_stats(times):
     }
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A prediction on the host. numpy has no bf16: bf16 features (the
+    bf16 serving path's `rpn_fts`, `rpn_img_fts`) widen to float32 exactly,
+    so the handoff file is the float32 one the JAX evaluator's `np.hstack`
+    of float32 points and bf16 features writes."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
 def _rows(tree, start, stop):
     """Rows [start, stop) of a tensor, or of each tensor of a tuple."""
     if isinstance(tree, tuple):
@@ -185,7 +193,7 @@ class RpnEvaluator:
             # Per-sample seg accuracy (the model's batch-mean formula, equal
             # at B=1).
             preds["seg_accuracy"] = (preds["seg_preds"] == inputs[3].long()).float().mean(1)
-        return {k: preds[k].cpu().numpy() for k in _HOST_KEYS if k in preds}, losses
+        return {k: _host(preds[k]) for k in _HOST_KEYS if k in preds}, losses
 
     def run_checkpoint_once(self, state_dict, global_step) -> dict:
         """Load `state_dict` into the model (None: keep its weights) and
@@ -384,7 +392,7 @@ class RcnnEvaluator:
         preds = model(t["rpn_roi"], t["rpn_pts"], t["rpn_intensity"], t["rpn_fg_mask"],
                       t["rpn_fts"], t["image_input"], t["stereo_calib_p2"],
                       proposals_iou=t["rpn_iou"], proposals_gt=t["rpn_gt"])
-        host = {k: preds[k].cpu().numpy() for k in _RCNN_HOST_KEYS}
+        host = {k: _host(preds[k]) for k in _RCNN_HOST_KEYS}
         if not self._with_loss:
             return host, None
         b, n = t["rpn_roi"].shape[:2]

@@ -537,6 +537,151 @@ def test_crop_gather_kernel_refuses_ragged_rows(cuda):
         crop_gather(src, idx, torch.zeros(1, dtype=torch.int32, device=cuda))
 
 
+# The bf16 forms (compute_dtype "bfloat16"): each kernel against its plain
+# bf16 version, which rounds at the same points. Tolerance: 2^-7 |plain| (two
+# bf16 ulps where the spacing is finest, one where it is coarsest: a float32
+# sum in another order rounds to the neighbouring bf16 value) plus 2^-8 of
+# the output's largest magnitude (one ulp there: an intermediate rounding to
+# bf16 that flips, its float32 input computed another way, ahead of a shift
+# that cancels the result to about 0). The crop gather is a copy: bit for bit.
+
+
+def _bf16_close(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    g, w = got.float(), want.float()
+    bound = 2.0 ** -7 * w.abs() + 2.0 ** -8 * float(w.abs().max())
+    assert bool(((g - w).abs() <= bound).all()), float(((g - w).abs() - bound).max())
+    assert bool(torch.isfinite(g).all())
+
+
+def _xconv_bf16_case(rng, cuda, k, cf, cp, d, b, p, with_x, n=400):
+    params = _xconv_params(rng, k, cf, cf + cp, 2, d)
+    w = _torch_weights(params, with_x)
+    w.wc = w.wc / (w.wc.std() * np.sqrt(k * (cf + cp)))
+    for f in w.__dataclass_fields__:
+        if getattr(w, f) is not None:
+            setattr(w, f, getattr(w, f).to(cuda))
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    fts = f32(b, n, cp).to(torch.bfloat16) if cp else None
+    idx = torch.from_numpy(rng.integers(0, n, (b, p, k)).astype(np.int32)).to(cuda)
+    return f32(b, n, 3), fts, f32(b, p, 3), idx, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,cf,cp,d,b,p,with_x", [
+    (4, 128, 544, 512, 2, 300, True),      # K = 4, the RCNN's first layer (Cp % 16 == 0)
+    (8, 64, 1, 256, 2, 300, True),         # the RPN's first layer: 1 feature (scalar gather)
+    (8, 64, 256, 256, 2, 200, False),      # K = 8 without the X-transform
+    (12, 128, 512, 1024, 1, 150, True),    # K = 12, D = 1024
+    (12, 256, 1280, 1024, 1, 100, True),   # Cf 256, Cin 1536
+    (8, 256, 1024, 1024, 4, 64, True),     # few queries: the split path
+    (8, 64, 0, 132, 1, 70, False),         # no features, D not a multiple of 128
+    (8, 64, 20, 256, 2, 100, True),        # Cp % 8 != 0
+])
+def test_xconv_bf16_kernel_matches_plain(cuda, k, cf, cp, d, b, p, with_x):
+    from heterofusionrcnn_torch.ops.xconv import XCONV_BF16_KERNEL, XCONV_EPILOGUE_BF16_KERNEL
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pts, fts, qrs, idx, w = _xconv_bf16_case(np.random.default_rng(13), cuda, k, cf, cp, d, b, p,
+                                             with_x)
+    splits = plan_xconv(b * p, k, cf, cp, d, sm_count(cuda), torch.bfloat16).splits
+    before = XCONV_BF16_KERNEL.launches, XCONV_EPILOGUE_BF16_KERNEL.launches
+    got = fused_xconv(pts, fts, qrs, idx, w, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (XCONV_BF16_KERNEL.launches - before[0],
+            XCONV_EPILOGUE_BF16_KERNEL.launches - before[1]) == (1, int(splits > 1))
+    _bf16_close(got, fused_xconv_plain(pts, fts, qrs, idx, w, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True], ids=["conv", "convt"])
+@pytest.mark.parametrize("b,cin,cout,h,w", [
+    (2, 3, 32, 45, 151),      # odd H and W, the first VGG layer's Cin
+    (1, 40, 20, 5, 7),        # C not a multiple of 16, tiny odd map
+    (2, 256, 128, 23, 75),    # wide channels, odd map
+    (1, 64, 64, 90, 300),
+    (1, 512, 64, 23, 75),     # Cin 512, K = 4608
+    (3, 7, 100, 3, 5),        # 15 pixels a frame, Cout not a multiple of 8
+])
+def test_conv_bf16_kernels_match_plain(cuda, transpose, b, cin, cout, h, w):
+    from heterofusionrcnn_torch.ops.conv import CONV_BF16_KERNEL, CONVT_BF16_KERNEL
+    torch.backends.cudnn.allow_tf32 = False
+    x, wt, scale, shift = _conv_case(np.random.default_rng(8), cuda, b, cin, cout, h, w, transpose)
+    x = x.to(torch.bfloat16)
+    kernel = CONVT_BF16_KERNEL if transpose else CONV_BF16_KERNEL
+    before = kernel.launches
+    if transpose:
+        got = convtranspose3x3_affine_relu(x, wt, scale, shift)
+        want = convtranspose3x3_affine_relu_plain(x, wt, scale, shift)
+    else:
+        got = conv3x3_affine_relu(x, wt, scale, shift)
+        want = conv3x3_affine_relu_plain(x, wt, scale, shift)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,nb,r", [(4, 16384, 288, 400, 512), (2, 300, 40, 7, 50),
+                                        (1, 64, 8, 3, 33)])
+def test_crop_gather_bf16_kernel_matches_plain(cuda, b, n, c, nb, r):
+    from heterofusionrcnn_torch.ops.cropping import CROP_BF16_KERNEL
+    rng = np.random.default_rng(9)
+    src = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32)).to(cuda)
+    src = src.to(torch.bfloat16)
+    idx = torch.from_numpy(rng.integers(0, n, (nb, r)).astype(np.int32)).to(cuda)
+    box_ind = torch.from_numpy(np.sort(rng.integers(0, b, nb)).astype(np.int32)).to(cuda)
+    before = CROP_BF16_KERNEL.launches
+    got = crop_gather(src, idx, box_ind)
+    assert CROP_BF16_KERNEL.launches == before + 1 and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, crop_gather_plain(src, idx, box_ind), rtol=0, atol=0)
+    with pytest.raises(ValueError):  # bf16 rows of C % 8 != 0 are not whole vectors
+        crop_gather(src[..., :c - 4].contiguous(), idx, box_ind)
+
+
+def _bf16_op_cases(cuda):
+    rng = np.random.default_rng(14)
+    pts, fts, qrs, idx, w = _xconv_bf16_case(rng, cuda, 8, 64, 72, 256, 2, 100, True, n=300)
+    ws = [getattr(w, f) for f in w.__dataclass_fields__]
+    x, wt, scale, shift = _conv_case(rng, cuda, 2, 40, 20, 15, 21, False)
+    xt, wtt, scale_t, shift_t = _conv_case(rng, cuda, 2, 40, 20, 15, 21, True)
+    crop_idx = torch.from_numpy(rng.integers(0, 400, (10, 64)).astype(np.int32)).to(cuda)
+    box_ind = torch.from_numpy(np.sort(rng.integers(0, 2, 10)).astype(np.int32)).to(cuda)
+    src = torch.from_numpy(rng.standard_normal((2, 400, 40)).astype(np.float32)).to(cuda)
+    partial = torch.from_numpy(rng.standard_normal((4, 300, 256)).astype(np.float32)).to(cuda)
+    return {
+        "fused_xconv": (pts, fts, qrs, idx, ws, torch.bfloat16),
+        "xconv_split_epilogue": (partial, w.sc, w.bc, torch.bfloat16),
+        "crop_gather": (src.to(torch.bfloat16), crop_idx, box_ind),
+        "conv3x3_affine_relu": (x.to(torch.bfloat16), wt, scale, shift, True),
+        "convtranspose3x3_affine_relu": (xt.to(torch.bfloat16), wtt, scale_t, shift_t, True),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_xconv", "xconv_split_epilogue", "crop_gather",
+                                  "conv3x3_affine_relu", "convtranspose3x3_affine_relu"])
+def test_bf16_ops_fake_functions_match_the_card(cuda, name):
+    """Each op's bf16 form on the card gives bf16 outputs, of the dtype and
+    shape its fake function gives for the same inputs under torch.export's
+    fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    args = _bf16_op_cases(cuda)[name]
+    op = getattr(torch.ops.hfr, name)
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.is_cuda
+    with FakeTensorMode(allow_non_fake_inputs=False) as mode:
+        fake_args = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else
+                     [None if t is None else mode.from_tensor(t) for t in a]
+                     if isinstance(a, list) else a for a in args]
+        fake = op(*fake_args)
+    assert (fake.dtype, tuple(fake.shape), fake.device.type) == (got.dtype, tuple(got.shape),
+                                                                  "cuda")
+
+
 # The training path on the card: rpn_unittest on the fixture frames, batch
 # 2, dropout and path drop off. Tolerances as tests/test_torch_training.py:
 # losses rtol 1e-4 / atol 1e-5; gradients and parameters after a step rtol

@@ -32,8 +32,14 @@ def test_nested_header_is_hashed(tmp_path):
 
 
 def test_conv_kernels_include_their_common_header():
-    for kern in (conv.CONV_KERNEL, conv.CONVT_KERNEL, xconv.XCONV_KERNEL):
-        assert [p.name for p in kern.headers()] == ["conv_common.cuh"]
+    """conv, convt and xconv share conv_common.cuh and their bf16 forms
+    (conv_bf16.cuh; xconv_bf16.cuh): an edit of either renames (rebuilds)
+    each library that includes it."""
+    for kern in (conv.CONV_KERNEL, conv.CONVT_KERNEL, conv.CONV_BF16_KERNEL):
+        assert [p.name for p in kern.headers()] == ["conv_bf16.cuh", "conv_common.cuh"]
+    for kern in (xconv.XCONV_KERNEL, xconv.XCONV_BF16_KERNEL):
+        assert [p.name for p in kern.headers()] == [
+            "conv_bf16.cuh", "conv_common.cuh", "xconv_bf16.cuh"]
     assert grouping.KNN_KERNEL.headers() == []
 
 

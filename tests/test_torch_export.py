@@ -24,7 +24,7 @@ import torch
 
 from heterofusionrcnn_torch.configs import presets as torch_presets
 from heterofusionrcnn_torch.convert import load_flax_variables
-from heterofusionrcnn_torch.inference import TwoStageDetector, random_batch
+from heterofusionrcnn_torch.inference import TwoStageDetector, build_two_stage, random_batch
 from heterofusionrcnn_torch.models.extractors.pointcnn import XConv
 from heterofusionrcnn_torch.ops import library
 from heterofusionrcnn_torch.runtime.export import export_fused_inference, load_exported
@@ -201,3 +201,32 @@ def test_fake_functions_give_the_cpu_shapes(case):
     for g, f in zip(got, fake):
         assert f.device.type == "meta"
         assert (g.shape, g.dtype) == (f.shape, f.dtype), case
+
+
+def test_two_stage_bf16_export_on_cpu(tmp_path):
+    """The `*_unittest` detector in bf16 (`compute_dtype="bfloat16"`), both
+    switches on, through `torch.export` on the CPU: the graph calls the
+    kernels' ops, whose fake functions give bf16 features, and the loaded
+    artifact equals the eager forward bit for bit on another batch (the
+    same CPU ops in the same order)."""
+    det, inputs = build_two_stage(2, 5, "cpu", torch_presets.rpn_unittest(),
+                                  torch_presets.rcnn_unittest(), conv_kernels=True,
+                                  crop_kernel=True, compute_dtype="bfloat16")
+    assert det.rpn.dtype == det.rcnn.dtype == torch.bfloat16
+    path = str(tmp_path / "two_stage_bf16.pt2")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        export_fused_inference(det, *inputs, path)
+        loaded = load_exported(path, device="cpu")
+        new = _batch(6)
+        got, want = loaded(*new), det(*new)
+    finally:
+        torch.set_num_threads(threads)
+    assert {"fused_xconv", "crop_gather", "conv3x3_affine_relu",
+            "convtranspose3x3_affine_relu"} <= _graph_ops(path)
+    for key, value in want.items():
+        assert got[key].dtype == value.dtype, key
+        torch.testing.assert_close(got[key], value, rtol=0, atol=0)
+    assert want["final_boxes"].dtype == torch.float32
+    assert int(want["num_final"].min()) > 0

@@ -161,16 +161,27 @@ def test_rcnn_and_two_stage(monkeypatch, shared_map):
 
 
 @pytest.mark.parametrize("stage", ["rpn", "rcnn"])
-def test_unported_compute_dtype_raises(stage):
-    """The JAX models run bf16 for compute_dtype "bfloat16"; the port has no
-    bf16 path yet, so it refuses the option instead of running FP32."""
+def test_bf16_train_mode_raises(stage):
+    """compute_dtype "bfloat16" serves (val and test mode,
+    tests/test_torch_bf16.py) but does not train: the port has no bf16
+    training path, so a bf16 model refuses train mode when built in it and
+    when put into training, instead of training in float32."""
     if stage == "rpn":
         cfg = torch_presets.rpn_unittest().model_config
         cfg.compute_dtype = "bfloat16"
         with pytest.raises(NotImplementedError, match="compute_dtype"):
-            RpnModel(cfg, 3, CLUSTER_SIZES)
+            RpnModel(cfg, 3, CLUSTER_SIZES, mode="train")
+        model = RpnModel(cfg, 3, CLUSTER_SIZES, mode="val").train()
+        b = {k: torch.from_numpy(x) for k, x in _inputs().items()}
+        with pytest.raises(NotImplementedError, match="compute_dtype"):
+            model(b["point_cloud"], b["image_input"], b["stereo_calib_p2"])
     else:
         cfg = torch_presets.rcnn_unittest().model_config
         cfg.compute_dtype = "bfloat16"
         with pytest.raises(NotImplementedError, match="compute_dtype"):
-            RcnnModel(cfg, 3, CLUSTER_SIZES, 64 + 8)
+            RcnnModel(cfg, 3, CLUSTER_SIZES, 64 + 8, mode="train")
+        model = RcnnModel(cfg, 3, CLUSTER_SIZES, 64 + 8, mode="test").train()
+        with pytest.raises(NotImplementedError, match="compute_dtype"):
+            model(torch.zeros(1, 2, 7), torch.zeros(1, 8, 3), torch.zeros(1, 8),
+                  torch.zeros(1, 8), torch.zeros(1, 8, 72), torch.zeros(1, 16, 16, 3),
+                  torch.zeros(1, 3, 4))

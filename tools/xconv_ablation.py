@@ -86,7 +86,9 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    shutil.copy(os.path.join(csrc, "conv_common.cuh"), args.out)
+    for header in os.listdir(csrc):  # xconv.cu's headers, and theirs
+        if header.endswith(".cuh"):
+            shutil.copy(os.path.join(csrc, header), args.out)
     procs = {}
     for name, text in sources.items():
         cu = os.path.join(args.out, f"{name}.cu")
