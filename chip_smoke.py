@@ -8,7 +8,10 @@
    sources, one nvcc per source, all at once; xconv.cu holds the fused
    XConv and its split epilogue), prints ptxas's registers, stack, spills
    and static shared memory of the conv, transposed conv and XConv kernels
-   and counts their tensor-core instructions (HGMMA, HMMA) in the SASS.
+   and counts their tensor-core instructions in the SASS (HGMMA, of it
+   bf16, and HMMA): the conv and transposed conv libraries run `wgmma` in
+   both forms (TF32 and bf16), the XConv's its float32 form on `wgmma` and
+   its bf16 form on `mma.sync`.
 3. Drives the main path: full-width `rpn_multiclass` -> `rcnn_multiclass`
    two-stage inference (16384 points, 360x1200 images) at batch 4 with
    random weights and BatchNorm statistics from seed 0, kernel switches
@@ -162,9 +165,16 @@
    BF16_ATOL_SHARE max |plain| (the worst error in bf16 ulps and the share
    of elements not bit-equal printed); each is timed beside its plain
    version and a library yardstick (bf16 torch.matmul of the XConv's
-   composed product, cuDNN bf16 conv2d / conv_transpose2d, bf16
+   composed product, cuDNN bf16 conv2d / conv_transpose2d on the call's
+   own channels-last input, and on an NCHW copy beside it, bf16
    index_select) and bounded at the bf16 tensor-core rate (989 TFLOP/s) or
-   3.35 TB/s (rows *_bf16 of the kernels line). The outputs are checked as
+   3.35 TB/s (rows *_bf16 of the kernels line); the conv rows also time
+   the kernel alone on its prepared operands (`kernel_ms`: the weight
+   arranged once, as the op caches it) beside the op with its wrapper, and
+   print each call's share of its bound. The switches-on bf16 forward's
+   profile counts the copy kernels (`aten::copy_`) of the image branch,
+   inside the conv ops and around them: inside, only the first layer's
+   channel padding (3 -> 8) may copy. The outputs are checked as
    in step 6; the bf16 RPN's segmentation logits must lie within
    SEG_LOGIT_BOUND of the float32 RPN's, and the share of the float32
    forward's final boxes matched by a bf16 box at BEV IoU >= 0.7 is
@@ -858,7 +868,8 @@ def ptxas_summary(log: str):
 
 def sass_mma_counts(lib_path) -> dict:
     """Tensor-core instructions in a built library's SASS (`cuobjdump`
-    beside nvcc): HGMMA is Hopper's wgmma, HMMA the older mma.sync."""
+    beside nvcc): HGMMA is Hopper's wgmma (HGMMA_BF16 those on bf16
+    operands), HMMA the older mma.sync."""
     from heterofusionrcnn_torch.ops.dispatch import _nvcc
 
     import re
@@ -866,7 +877,9 @@ def sass_mma_counts(lib_path) -> dict:
     cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
+    counts = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
+    counts["HGMMA_BF16"] = len(re.findall(r"\bHGMMA\.\S*BF16", sass))
+    return counts
 
 
 def profile_forward(det, inputs, top: int = 15):
@@ -2147,40 +2160,64 @@ def bf16_rows(calls, reps):
         r["plain_ms"] += pms
         r["calls"].append(dict(shape=f"{s_}x{m}x{d}", ms=ms, plain_ms=pms))
 
+    # The convs: the op with its wrapper (`ms`) and the kernel alone on the
+    # operands the op prepares (`kernel_ms`: the channels-last input padded
+    # to 8 channels, the weight arranged once, as the op caches it); cuDNN
+    # bf16 on the call's own channels-last input (`library_ms`) and on an
+    # NCHW copy (`library_nchw_ms`).
     convs = (("conv_bf16", "conv.cu", "conv", conv.conv3x3_affine_relu,
-              conv.conv3x3_affine_relu_plain, lambda x, w: F.conv2d(x, w, padding=1), 1),
+              conv.conv3x3_affine_relu_plain, lambda x, w: F.conv2d(x, w, padding=1), 1,
+              conv.CONV_BF16_KERNEL, "hfr_conv3x3_bf16", False),
              ("convt_bf16", "convt.cu", "convt", conv.convtranspose3x3_affine_relu,
               conv.convtranspose3x3_affine_relu_plain,
-              lambda x, w: F.conv_transpose2d(x, w, stride=2), 4))
-    for name, src, base, fn, plain, library, up in convs:
+              lambda x, w: F.conv_transpose2d(x, w, stride=2), 4,
+              conv.CONVT_BF16_KERNEL, "hfr_convt3x3_bf16", True))
+    for name, src, base, fn, plain, library, up, kern, cfn, transposed in convs:
         r = row(name, src, base)
-        r["library_ms"] = 0.0
+        r.update(library_ms=0.0, library_nchw_ms=0.0, kernel_ms=0.0)
         for (x, w, sc, sh), kw in calls[KERNEL_OPS[base]]:
             got, want = fn(x, w, sc, sh, **kw), plain(x, w, sc, sh, **kw)
+            if not got.is_contiguous(memory_format=torch.channels_last):
+                raise AssertionError(f"{name}: the output is not channels-last")
             err = bf16_compare(got, want, name)
             note(r, err)
             r["not_bit_equal"] += err[2] * got.numel()
             r["elements"] += got.numel()
             del got, want
-            w16 = w.to(bf16)
-            ms = cuda_ms(lambda: fn(x, w, sc, sh, **kw), reps)
-            pms = cuda_ms(lambda: plain(x, w, sc, sh, **kw), reps)
-            lms = cuda_ms(lambda: library(x, w16), reps)
             b, cin, h, wd = x.shape
             cout = sc.shape[0]
+            w16 = w.to(bf16)
+            x_nchw = x.contiguous()
+            x8 = conv.channels_last8(x)
+            wt = conv.cached_bf16_operand(w, transposed)
+            relu = kw.get("relu", True)
+            ms = cuda_ms(lambda: fn(x, w, sc, sh, **kw), reps)
+            kms = cuda_ms(lambda: conv.launch_bf16(kern, cfn, x8, wt, sc, sh, cout, transposed,
+                                                   relu), reps)
+            pms = cuda_ms(lambda: plain(x, w, sc, sh, **kw), reps)
+            lms = cuda_ms(lambda: library(x, w16), reps)
+            lnms = cuda_ms(lambda: library(x_nchw, w16), reps)
+            del x_nchw, x8
             flops = 2.0 * 9 * cin * cout * b * h * wd
             nbytes = 2 * (x.numel() + w.numel() + up * b * cout * h * wd) + 8 * cout
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
             add_bound(r, nbytes, flops, BF16_FLOPS_PER_S)
             r["ms"] += ms
+            r["kernel_ms"] += kms
             r["plain_ms"] += pms
             r["library_ms"] += lms
+            r["library_nchw_ms"] += lnms
             shape = f"{b}x{cin}x{h}x{wd}->{cout}"
-            r["calls"].append(dict(shape=shape, ms=ms, plain_ms=pms, library_ms=lms,
-                                   tflops=flops / ms * 1e-9, library_tflops=flops / lms * 1e-9,
-                                   ulps=err[1], not_bit_equal=err[2]))
-            print(f"{name} {shape}: {ms:.4f} ms, {flops / ms * 1e-9:.2f} TFLOP/s; cuDNN bf16 "
-                  f"{lms:.4f} ms; max err {err[0]:.3g} ({err[1]:.2f} ulps), not bit-equal "
-                  f"{err[2]:.4f}", flush=True)
+            r["calls"].append(dict(shape=shape, ms=ms, kernel_ms=kms, plain_ms=pms,
+                                   library_ms=lms, library_nchw_ms=lnms, bound_ms=bound,
+                                   bound_share=bound / kms, tflops=flops / ms * 1e-9,
+                                   kernel_tflops=flops / kms * 1e-9,
+                                   library_tflops=flops / lms * 1e-9, ulps=err[1],
+                                   not_bit_equal=err[2]))
+            print(f"{name} {shape}: {ms:.4f} ms, kernel alone {kms:.4f} ms "
+                  f"({flops / kms * 1e-9:.2f} TFLOP/s, {bound / kms:.3f} of its {bound:.4f} ms "
+                  f"bound); cuDNN bf16 channels-last {lms:.4f} ms, NCHW {lnms:.4f} ms; max err "
+                  f"{err[0]:.3g} ({err[1]:.2f} ulps), not bit-equal {err[2]:.4f}", flush=True)
 
     r = row("crop_bf16", "crop.cu", "crop")
     r["library_ms"] = 0.0
@@ -2207,6 +2244,44 @@ def bf16_rows(calls, reps):
     for r in rows.values():
         r["not_bit_equal"] = r["not_bit_equal"] / max(r.pop("elements"), 1)
     return finish_rows(rows)
+
+
+def image_branch_copies(det, inputs):
+    """One forward under torch.profiler with the image branch
+    (`ImgVggPyr.forward`) in a record_function range: its `aten::copy_`
+    calls (each a copy kernel on the card), inside the conv ops (`hfr::*`)
+    and outside them, with the op each sits under."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from heterofusionrcnn_torch.models.extractors import img_vgg_pyr
+
+    forward = img_vgg_pyr.ImgVggPyr.forward
+
+    def ranged(self, *args, **kwargs):
+        with record_function("image_branch"):
+            return forward(self, *args, **kwargs)
+
+    with patched(img_vgg_pyr.ImgVggPyr, "forward", ranged), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        det(*inputs)
+        torch.cuda.synchronize()
+    branch = [e for e in prof.events()
+              if e.name == "image_branch" and e.device_type == DeviceType.CPU]
+
+    def copies(e):
+        return (e.name == "aten::copy_") + sum(copies(c) for c in e.cpu_children)
+
+    under = {}
+    for e in branch:
+        for top in e.cpu_children:
+            n = copies(top)
+            if n:
+                under[top.name] = under.get(top.name, 0) + n
+    inside = sum(n for k, n in under.items() if k.startswith("hfr::"))
+    return dict(inside_conv_ops=inside, outside_conv_ops=sum(under.values()) - inside,
+                under=under, ranges=len(branch))
 
 
 def bf16_small_width_agrees(seed, switches: bool):
@@ -2305,6 +2380,11 @@ def bf16_phase(kernels, det32, inputs, launches32, handoff, out_root):
               f"(turns {' '.join(f'{t:.2f}' for t in turns[key])})", flush=True)
     report["turns_ms_f32_bf16_bf16_f32"] = turns
     report["profile_switches_on"] = profile_forward(dets[True], inputs, top=20)
+    copies = image_branch_copies(dets[True], inputs)
+    report["image_branch_copies_switches_on"] = copies
+    print(f"bf16 switches on, copy kernels of the image branch: {copies}", flush=True)
+    if copies["inside_conv_ops"] > 1:
+        raise AssertionError(f"the bf16 conv ops copy more than the first layer's input: {copies}")
     report["device_busy_share_switches_on"] = (report["profile_switches_on"]["device_busy_ms"]
                                                / ((turns["on"][1] + turns["on"][2]) / 2))
     report["profile_switches_off"] = profile_forward(dets[False], inputs, top=20)
@@ -2476,9 +2556,11 @@ def main(argv=None) -> int:
     print(f"tensor-core instructions in SASS: {report['sass_conv']}", flush=True)
     if not all(c["HGMMA"] for c in report["sass_conv"].values()):
         raise AssertionError(f"tensor-core kernels without wgmma: {report['sass_conv']}")
-    # The bf16 forms in the same libraries run mma.sync (HMMA).
-    if not all(c["HMMA"] for c in report["sass_conv"].values()):
-        raise AssertionError(f"bf16 kernels without mma.sync: {report['sass_conv']}")
+    # The bf16 forms of the conv and transposed conv run wgmma on bf16; the
+    # bf16 XConv runs mma.sync (HMMA).
+    sass = report["sass_conv"]
+    if not (sass["conv"]["HGMMA_BF16"] and sass["convt"]["HGMMA_BF16"] and sass["xconv"]["HMMA"]):
+        raise AssertionError(f"bf16 kernels off their tensor-core instructions: {sass}")
 
     b = BATCH
     det, inputs = build_two_stage(BATCH, SEED, "cuda")
@@ -2564,8 +2646,10 @@ def main(argv=None) -> int:
         json.dump(report, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # The KNN row's and the bf16 rows' extra keys.
-    extra = ("bytes_bound_ms", "visited_bound_ms", "visited_share", "ulps", "not_bit_equal")
+    # The KNN row's and the bf16 rows' extra keys; the bf16 convs' kernel
+    # alone and their NCHW cuDNN yardstick.
+    extra = ("bytes_bound_ms", "visited_bound_ms", "visited_share", "ulps", "not_bit_equal",
+             "kernel_ms", "library_nchw_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -49,8 +49,9 @@
 // useful taps), each one three TF32 tensor-core products.
 //
 // The bf16 form (`hfr_convt3x3_bf16`, the bf16 serving path) is the kernel
-// of conv_bf16.cuh in its polyphase mode: bf16 activations and weight on
-// `mma.sync`, float32 sums, a bf16 output.
+// of conv_bf16.cuh in its polyphase mode: channels-last bf16 activations
+// loaded by TMA, a bf16 weight, `wgmma` bf16 with float32 sums, a
+// channels-last bf16 output.
 
 #include "conv_bf16.cuh"
 #include "conv_common.cuh"
@@ -227,15 +228,16 @@ int hfr_convt3x3(const float* x, const float* wt, const float* scale, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 form (conv_bf16.cuh): x (B, Cin, H, W) bf16, wt the arranged bf16
-// weight of `ops/conv.py` (`bf16_weight_operand`), scale/shift float32; out
-// (B, Cout, 2H, 2W) bf16.
+// The bf16 form (conv_bf16.cuh): x (B, H, W, Cin) bf16 (NHWC in memory, Cin
+// a multiple of 8), wt the arranged bf16 weight of `ops/conv.py`
+// (`bf16_weight_operand`) for Cout tiles of bn, scale/shift float32; out
+// (B, 2H, 2W, Cout) bf16; the persistent grid takes at most `sms` blocks.
 int hfr_convt3x3_bf16(const void* x, const void* wt, const float* scale, const float* shift,
-                      void* out, int b, int cin, int cout, int h, int w, int relu, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || cin <= 0 || cout <= 0 || h <= 0 || w <= 0 || b > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return hfr::bf16conv::launch<true, 32>(x, wt, scale, shift, out, b, cin, cout, h, w, relu, s);
+                      void* out, int b, int cin, int cout, int h, int w, int relu, int bn,
+                      int sms, void* stream) {
+  return static_cast<int>(hfr::bf16conv::run<true>(x, wt, scale, shift, out, b, cin, cout, h, w,
+                                                  relu, bn, sms,
+                                                  static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -595,6 +595,7 @@ def test_xconv_bf16_kernel_matches_plain(cuda, k, cf, cp, d, b, p, with_x):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
 @pytest.mark.parametrize("transpose", [False, True], ids=["conv", "convt"])
 @pytest.mark.parametrize("b,cin,cout,h,w", [
     (2, 3, 32, 45, 151),      # odd H and W, the first VGG layer's Cin
@@ -603,12 +604,21 @@ def test_xconv_bf16_kernel_matches_plain(cuda, k, cf, cp, d, b, p, with_x):
     (1, 64, 64, 90, 300),
     (1, 512, 64, 23, 75),     # Cin 512, K = 4608
     (3, 7, 100, 3, 5),        # 15 pixels a frame, Cout not a multiple of 8
+    (2, 32, 32, 37, 150),     # W 150: an NCHW row pitch of 300 bytes
+    (1, 7, 20, 19, 151),      # Cin 7 (padded to 8), W 151
+    (1, 40, 100, 12, 75),     # Cin 40 (a zero-filled channel group), Cout 100
+    (2, 128, 256, 17, 150),   # two Cout tiles of 128 (the transposed conv: four of 64)
+    (1, 3, 20, 64, 128),      # whole 64-column tiles, no ragged edge
 ])
-def test_conv_bf16_kernels_match_plain(cuda, transpose, b, cin, cout, h, w):
+def test_conv_bf16_kernels_match_plain(cuda, layout, transpose, b, cin, cout, h, w):
+    """Each bf16 kernel against its plain version on NCHW and channels-last
+    inputs; the output channels-last either way, one launch a call."""
     from heterofusionrcnn_torch.ops.conv import CONV_BF16_KERNEL, CONVT_BF16_KERNEL
     torch.backends.cudnn.allow_tf32 = False
     x, wt, scale, shift = _conv_case(np.random.default_rng(8), cuda, b, cin, cout, h, w, transpose)
     x = x.to(torch.bfloat16)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
     kernel = CONVT_BF16_KERNEL if transpose else CONV_BF16_KERNEL
     before = kernel.launches
     if transpose:
@@ -619,7 +629,30 @@ def test_conv_bf16_kernels_match_plain(cuda, transpose, b, cin, cout, h, w):
         want = conv3x3_affine_relu_plain(x, wt, scale, shift)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
     _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True], ids=["conv", "convt"])
+def test_conv_bf16_follows_in_place_weight_update(cuda, transpose):
+    """The bf16 kernels' weight operand is arranged once per weight
+    version: after an in-place update of the weight the next call computes
+    with the new weight."""
+    rng = np.random.default_rng(15)
+    x, wt, scale, shift = _conv_case(rng, cuda, 2, 40, 36, 21, 70, transpose)
+    x = x.to(torch.bfloat16)
+    fn, plain = ((convtranspose3x3_affine_relu, convtranspose3x3_affine_relu_plain) if transpose
+                 else (conv3x3_affine_relu, conv3x3_affine_relu_plain))
+    first = fn(x, wt, scale, shift)
+    _bf16_close(first, plain(x, wt, scale, shift))
+    with torch.no_grad():
+        wt.add_(torch.from_numpy(rng.standard_normal(wt.shape).astype(np.float32)).to(cuda)
+                * float(wt.std()))
+    second = fn(x, wt, scale, shift)
+    torch.cuda.synchronize()
+    _bf16_close(second, plain(x, wt, scale, shift))
+    assert not torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -1070,3 +1103,44 @@ def test_export_roundtrip_on_card(cuda, tmp_path):
     assert not torch.allclose(loaded(*inputs)["proposals"], got["proposals"])
     with pytest.raises(ValueError, match="not on 'cpu'"):
         load_exported(path, device="cpu")
+
+
+@pytest.mark.cuda
+def test_bf16_export_roundtrip_on_card(cuda, tmp_path):
+    """The `*_unittest` two-stage detector in bf16, both switches on,
+    exported on the card and loaded: on a batch of another seed the loaded
+    forward launches each bf16 kernel as often as the eager forward and
+    equals it (kept boxes within 1e-4 + 1e-4 |eager|, classes, valid flags
+    and counts exact); the bf16 weight operands the eager forward cached
+    are not part of the artifact."""
+    from heterofusionrcnn_torch.configs.presets import rcnn_unittest, rpn_unittest
+    from heterofusionrcnn_torch.inference import build_two_stage, random_batch
+    from heterofusionrcnn_torch.runtime.export import export_fused_inference, load_exported
+    from heterofusionrcnn_torch.ops import conv, cropping, xconv
+
+    det, inputs = build_two_stage(2, 3, "cuda", rpn_unittest(), rcnn_unittest(),
+                                  conv_kernels=True, crop_kernel=True,
+                                  compute_dtype="bfloat16")
+    det(*inputs)
+    path = str(tmp_path / "two_stage_bf16.pt2")
+    export_fused_inference(det, *inputs, path)
+    loaded = load_exported(path)
+    host = random_batch(rpn_unittest(), 2, 8)
+    new = [torch.from_numpy(host[k]).to(cuda)
+           for k in ("point_cloud", "image_input", "stereo_calib_p2")]
+    kernels = [xconv.XCONV_BF16_KERNEL, conv.CONV_BF16_KERNEL, conv.CONVT_BF16_KERNEL,
+               cropping.CROP_BF16_KERNEL]
+    counts = []
+    outs = []
+    for fn in (loaded, det):
+        before = [k.launches for k in kernels]
+        outs.append(fn(*new))
+        torch.cuda.synchronize()
+        counts.append([k.launches - b for k, b in zip(kernels, before)])
+    assert counts[0] == counts[1] and all(counts[0])
+    got, want = outs
+    for key in ("proposals", "proposal_scores", "final_boxes", "final_scores"):
+        g, w = got[key].float(), want[key].float()
+        assert bool(((g - w).abs() <= 1e-4 + 1e-4 * w.abs()).all()), key
+    for key in ("final_classes", "final_valid", "num_final"):
+        assert torch.equal(got[key], want[key]), key

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Cell A's switches-off forward, timed in turns on two trees, on one NVIDIA card.
+"""The batch-4 forward, timed in turns on two trees, on one NVIDIA card.
 
     python tools/forward_turns.py TREE_A TREE_B [--pairs 10] [--out FILE]
+        [--dtype float32|bfloat16] [--switches off|on]
 
 TREE_A and TREE_B are checkouts of the repo (for example `git archive`s of
 a parent commit and of its change). Each turn is a fresh process run on
 one tree: it imports that tree's `chip_smoke.py` and port, builds the
 full-width two-stage detector at batch 4 with `chip_smoke.py`'s seed-0
-weights, BatchNorm statistics and inputs (kernel switches off; the
-tree's kernels build at first use, once per tree), runs one forward to
+weights, BatchNorm statistics and inputs, in `--dtype` (its
+`compute_dtype`; float32 is cell A, bfloat16 cell G) with the conv and
+crop kernel switches `--switches` (default off, the JAX package's
+default; the tree's kernels build at first use, once per tree), runs one
+forward to
 warm up, times the forward three times with `chip_smoke.cuda_ms` (CUDA
 events, mean of its ITERS forwards) and keeps their median, then takes
 the forward's device time once (`chip_smoke.profile_forward`). Pairs
@@ -28,7 +32,7 @@ import subprocess
 import sys
 
 
-def one_turn(tree: str) -> dict:
+def one_turn(tree: str, dtype: str, switches: bool) -> dict:
     """One turn in this process, on `tree`."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -37,7 +41,8 @@ def one_turn(tree: str) -> dict:
     from heterofusionrcnn_torch.inference import build_two_stage
 
     torch.set_grad_enabled(False)
-    det, inputs = build_two_stage(cs.BATCH, cs.SEED, "cuda")
+    det, inputs = build_two_stage(cs.BATCH, cs.SEED, "cuda", conv_kernels=switches,
+                                  crop_kernel=switches, compute_dtype=dtype)
     cs.randomize_batchnorm(det, cs.SEED)
     det(*inputs)
     torch.cuda.synchronize()
@@ -56,10 +61,12 @@ def main(argv=None) -> int:
     ap.add_argument("trees", nargs="+", help="TREE_A TREE_B (or --one TREE)")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--out", default="outputs/forward_turns.json")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--switches", choices=("off", "on"), default="off")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one:
-        print(json.dumps(one_turn(args.trees[0])), flush=True)
+        print(json.dumps(one_turn(args.trees[0], args.dtype, args.switches == "on")), flush=True)
         return 0
     if len(args.trees) != 2:
         ap.error("give two trees")
@@ -69,7 +76,8 @@ def main(argv=None) -> int:
         order = args.trees if i % 2 == 0 else args.trees[::-1]
         pair = {}
         for tree in order:
-            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree,
+                                  "--dtype", args.dtype, "--switches", args.switches],
                                  capture_output=True, text=True, timeout=600)
             if out.returncode:
                 sys.stderr.write(out.stdout + out.stderr)
@@ -97,7 +105,8 @@ def main(argv=None) -> int:
               f"pairs won {s['pairs_won']} of {args.pairs}", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump(dict(turns=turns, summary=summary), f, indent=1)
+        json.dump(dict(turns=turns, summary=summary, dtype=args.dtype, switches=args.switches),
+                  f, indent=1)
     return 0
 
 
