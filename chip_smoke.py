@@ -9,9 +9,9 @@
    XConv and its split epilogue), prints ptxas's registers, stack, spills
    and static shared memory of the conv, transposed conv and XConv kernels
    and counts their tensor-core instructions in the SASS (HGMMA, of it
-   bf16, and HMMA): the conv and transposed conv libraries run `wgmma` in
-   both forms (TF32 and bf16), the XConv's its float32 form on `wgmma` and
-   its bf16 form on `mma.sync`.
+   bf16, and HMMA): the conv, transposed conv and XConv libraries run
+   `wgmma` in both forms (TF32 and bf16); the check fails without bf16
+   HGMMA in any of the three.
 3. Drives the main path: full-width `rpn_multiclass` -> `rcnn_multiclass`
    two-stage inference (16384 points, 360x1200 images) at batch 4 with
    random weights and BatchNorm statistics from seed 0, kernel switches
@@ -171,7 +171,9 @@
    3.35 TB/s (rows *_bf16 of the kernels line); the conv rows also time
    the kernel alone on its prepared operands (`kernel_ms`: the weight
    arranged once, as the op caches it) beside the op with its wrapper, and
-   print each call's share of its bound. The switches-on bf16 forward's
+   print each call's share of its bound; each XConv call's line gives its
+   share of its bound and its cluster size (the CTAs that share the call's
+   A chunks, `plan_xconv`). The switches-on bf16 forward's
    profile counts the copy kernels (`aten::copy_`) of the image branch,
    inside the conv ops and around them: inside, only the first layer's
    channel padding (3 -> 8) may copy. The outputs are checked as
@@ -2130,6 +2132,7 @@ def bf16_rows(calls, reps):
         nbytes = (4 * b * n * 3 + 2 * b * n * cp + 4 * b * p * (3 + k) + 2 * b * p * d
                   + wbytes + 2 * w.wc.numel())
         flops = float(b * p * per_q)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
         add_bound(r, nbytes, flops, BF16_FLOPS_PER_S)
         r["ms"] += ms
         r["plain_ms"] += pms
@@ -2138,8 +2141,10 @@ def bf16_rows(calls, reps):
         shape = f"{b}x{p} K{k} Cf{cf} Cin{cin} D{d}"
         r["calls"].append(dict(shape=shape, ms=ms, plain_ms=pms, matmul_ms=lms,
                                tflops=flops / ms * 1e-9, splits=plan.splits,
+                               cluster=plan.cluster, bound_ms=bound, bound_share=bound / ms,
                                max_abs_err=err[0], ulps=err[1], not_bit_equal=err[2]))
         print(f"xconv_bf16 {shape}: {ms:.4f} ms, {flops / ms * 1e-9:.2f} TFLOP/s, "
+              f"bound {bound:.4f} ms ({bound / ms:.3f} of it), cluster {plan.cluster}, "
               f"{plan.splits} split(s); bf16 matmul of the product {lms:.4f} ms; "
               f"max err {err[0]:.3g} ({err[1]:.2f} ulps), not bit-equal {err[2]:.4f}", flush=True)
 
@@ -2556,10 +2561,11 @@ def main(argv=None) -> int:
     print(f"tensor-core instructions in SASS: {report['sass_conv']}", flush=True)
     if not all(c["HGMMA"] for c in report["sass_conv"].values()):
         raise AssertionError(f"tensor-core kernels without wgmma: {report['sass_conv']}")
-    # The bf16 forms of the conv and transposed conv run wgmma on bf16; the
-    # bf16 XConv runs mma.sync (HMMA).
+    # The bf16 forms of the conv, transposed conv and XConv all run wgmma
+    # on bf16 (the XConv library holds both XConv forms: its TF32 HGMMA is
+    # the float32 kernel's, its bf16 HGMMA the bf16 kernel's).
     sass = report["sass_conv"]
-    if not (sass["conv"]["HGMMA_BF16"] and sass["convt"]["HGMMA_BF16"] and sass["xconv"]["HMMA"]):
+    if not all(sass[k]["HGMMA_BF16"] for k in ("conv", "convt", "xconv")):
         raise AssertionError(f"bf16 kernels off their tensor-core instructions: {sass}")
 
     b = BATCH

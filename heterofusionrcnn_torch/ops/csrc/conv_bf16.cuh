@@ -79,7 +79,7 @@
 namespace hfr {
 namespace bf16conv {
 
-// --- mma.sync helpers (the bf16 XConv, xconv_bf16.cuh) ---------------------
+// --- mma.sync helpers (the bf16 XConv's lift-2, xconv_bf16.cuh) --------------
 
 // d += a b: m16n8k16, A row-major (16 x 16 bf16), B column-major (16 x 8).
 // For lane l, g = l / 4 and t = l % 4: a0 (row g, k 2t, 2t + 1), a1 (g + 8,

@@ -63,7 +63,8 @@
 //
 // The bf16 form (`hfr_xconv_bf16`, `hfr_xconv_epilogue_bf16`: the Pallas
 // kernel's `compute_dtype=jnp.bfloat16`, the bf16 serving path) is the
-// kernel of xconv_bf16.cuh.
+// kernel of xconv_bf16.cuh: warp-specialised `wgmma` bf16 on a persistent
+// grid of thread-block clusters that form each A chunk once for all of D.
 
 #include "conv_common.cuh"
 #include "xconv_bf16.cuh"
@@ -728,10 +729,12 @@ int hfr_xconv_epilogue(const float* partial, const float* sc, const float* bc, f
 
 // The bf16 form (xconv_bf16.cuh): fts (B, N, Cp) bf16, the coordinates and
 // the weights float32 (rounded to bf16 in the kernel), wt the arranged bf16
-// Wc of `ops/xconv.py` (`xconv_weight_operand_bf16`, D padded to dp, a
-// multiple of 256); out (B, P, D) bf16 with splits == 1, else the float32
-// partial sums into partial for hfr_xconv_epilogue_bf16. vec8: Cp % 8 == 0
-// and fts 16-byte aligned (16-byte gathers).
+// Wc of `ops/xconv.py` (`xconv_weight_operand_bf16`: D padded to dp, 256
+// for D <= 256, else a multiple of 512 up to 1024); out (B, P, D) bf16 with
+// splits == 1, else the float32 partial sums into partial for
+// hfr_xconv_epilogue_bf16. vec8: Cp % 8 == 0 and fts 16-byte aligned
+// (16-byte gathers). A refused launch (shape, cluster, occupancy) returns
+// its error.
 int hfr_xconv_bf16(const float* pts, const void* fts, const float* qrs, const int* idx,
                    const float* w1, const float* s1, const float* b1, const float* w2,
                    const float* s2, const float* b2, const float* wx0, const float* sx0,
@@ -742,23 +745,23 @@ int hfr_xconv_bf16(const float* pts, const void* fts, const float* qrs, const in
                    int vec8, void* stream) {
   namespace x16 = hfr::bf16xconv;
   const int nch = (cf + x16::kKC - 1) / x16::kKC + (cp + x16::kKC - 1) / x16::kKC;
-  if (d % 4 != 0 || dp % x16::kDAlign != 0 || dp < d || cf < 1 || cf > x16::kMaxCf ||
-      splits < 1 || splits > nch || splits > 65535 || b * p < 1 ||
+  if (d % 4 != 0 || dp < d || (dp != 256 && dp % 512 != 0) || dp > x16::kMaxD || cf < 1 ||
+      cf > x16::kMaxCf || splits < 1 || splits > nch || splits > 65535 || b * p < 1 ||
       (splits > 1 && partial == nullptr) || (splits == 1 && out == nullptr) ||
-      (cp > 0 && fts == nullptr))
+      (cp > 0 && fts == nullptr) || reinterpret_cast<uintptr_t>(wt) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   x16::Args a{pts, static_cast<const __nv_bfloat16*>(fts), qrs, idx, w1, s1, b1, w2, s2, b2,
               wx0, sx0, bx0, wx1, sx1, bx1, wx2, sx2, bx2,
               static_cast<const __nv_bfloat16*>(wt), sc, bc, static_cast<__nv_bfloat16*>(out),
-              partial, b, n, p, cf, cp, d, dp, with_x, splits, vec8};
+              partial, b, n, p, cf, cp, d, dp, with_x, splits, vec8, 1, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
     case 4:
-      return x16::launch<4>(a, s);
+      return x16::run<4>(a, s);
     case 8:
-      return x16::launch<8>(a, s);
+      return x16::run<8>(a, s);
     case 12:
-      return x16::launch<12>(a, s);
+      return x16::run<12>(a, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -22,11 +22,13 @@ contraction of the few-query layers; a split's partial sums go through
 
 `compute_dtype` bf16 is the Pallas kernel's `compute_dtype=jnp.bfloat16`
 (the bf16 serving path): the op then takes bf16 features and returns bf16,
-the card runs the bf16 entry of `csrc/xconv.cu` (`hfr_xconv_bf16`:
-`mma.sync` bf16 products, float32 sums, Wc arranged by
-`xconv_weight_operand_bf16` and kept in `XConvWeights.wc_operand_bf16`) and
-the CPU the plain version's bf16 form; they round to bf16 exactly where
-the Pallas kernel casts to its compute dtype.
+the card runs the bf16 entry of `csrc/xconv.cu` (`hfr_xconv_bf16`, the
+kernel of `csrc/xconv_bf16.cuh`: warp-specialised `wgmma` bf16 products
+with float32 sums on a persistent grid of clusters that form each A chunk
+once for all output channels, Wc arranged by `xconv_weight_operand_bf16`
+and kept in `XConvWeights.wc_operand_bf16`) and the CPU the plain
+version's bf16 form; they round to bf16 exactly where the Pallas kernel
+casts to its compute dtype.
 """
 
 from __future__ import annotations
@@ -62,17 +64,22 @@ D_ALIGN = 128         # output channels of the arranged weight padded to this (k
 MIN_SPLIT_CHUNKS = 4  # chunks a split takes at least
 MAX_SPLITS = 16
 H100_SMS = 132
-# The bf16 kernel (xconv_bf16.cuh): 64 queries x `bf16_block_d(K)` output
-# channels a block, contraction chunks of 16 channels, Wc's D padded to
-# BF16_D_ALIGN.
+# The bf16 kernel (xconv_bf16.cuh): a cluster of CTAs per tile of BLOCK_Q
+# queries covers all of D, each CTA two consumer warpgroups of
+# `bf16_tile_n(D)` channels; contraction chunks of 16 channels.
 BF16_CHUNK = 16       # kKC
-BF16_D_ALIGN = 256    # kDAlign
+BF16_MAX_D = 1024     # kMaxD
 
 
-def bf16_block_d(k: int) -> int:
-    """Output channels a block of the bf16 kernel takes (`block_n`): 256,
-    or 128 at K = 12, whose Wc stage would not fit shared memory at 256."""
-    return 128 if k == 12 else 256
+def bf16_tile_n(d: int) -> int:
+    """Output channels of one consumer warpgroup of the bf16 kernel (WN):
+    128 where D <= 256 (one CTA of 256), else 256."""
+    return 128 if d <= 256 else 256
+
+
+def bf16_cluster(d: int) -> int:
+    """CTAs of the bf16 kernel's cluster along D: 2 WN channels each."""
+    return -(-d // (2 * bf16_tile_n(d)))
 
 
 @dataclass
@@ -151,29 +158,39 @@ def xconv_weight_operand(wc: torch.Tensor, cf: int) -> torch.Tensor:
 
 def xconv_weight_operand_bf16(wc: torch.Tensor, cf: int) -> torch.Tensor:
     """What the bf16 kernel takes for Wc (K, Cin, D), Cin = Cf + Cp: Wc
-    (composed in float32) rounded to bf16 as (chunks, K, Dp, 16), i.e.
-    [chunk of 16 channels][neighbour][output channel][channel in chunk],
-    the lifted chunks first, lifted and feature channels each padded to a
-    multiple of 16 and D to BF16_D_ALIGN, with zeros."""
+    (composed in float32) rounded to bf16 as (Dp / WN, chunks, K, 2, WN,
+    8), WN = `bf16_tile_n(D)`: [consumer tile of WN output channels][16-
+    channel chunk in the order of `chunk_order`][neighbour][half of the
+    chunk][output channel][channel in the half]. Each (chunk, neighbour)
+    B tile of a consumer is one contiguous run of WN x 16 values, K-major
+    as its `wgmma` reads it (8 x 8 core matrices of 128 bytes, the two
+    halves WN x 16 bytes apart). Lifted and feature channels are each
+    padded to a multiple of 16 and D to `bf16_cluster(D)` x 2 WN, with
+    zeros."""
     k, cin, d = wc.shape
     cp = cin - cf
     nf = -(-cf // BF16_CHUNK)
     nc = nf + -(-cp // BF16_CHUNK)
-    dp = -(-d // BF16_D_ALIGN) * BF16_D_ALIGN
+    wn = bf16_tile_n(d)
+    dp = bf16_cluster(d) * 2 * wn
     w = wc.new_zeros(k, BF16_CHUNK * nc, dp)
     w[:, :cf, :d] = wc[:, :cf]
     w[:, BF16_CHUNK * nf:BF16_CHUNK * nf + cp, :d] = wc[:, cf:]
-    w = w.reshape(k, nc, BF16_CHUNK, dp).permute(1, 0, 3, 2)
+    w = w.reshape(k, nc, BF16_CHUNK, dp)[:, chunk_order(nf, nc)]
+    w = w.reshape(k, nc, 2, 8, dp // wn, wn).permute(4, 1, 0, 2, 5, 3)
     return w.to(torch.bfloat16).contiguous()
 
 
 @dataclass(frozen=True)
 class XConvPlan:
-    """The kernel's grid: query tiles x channel tiles x contraction splits."""
+    """The kernel's grid: query tiles x channel tiles x contraction splits
+    (the bf16 kernel's channel tiles are the CTAs of its cluster, which
+    walk the query tiles and splits as a persistent grid)."""
 
     qtiles: int
     ntiles: int
     splits: int
+    cluster: int = 1
 
     @property
     def blocks(self) -> int:
@@ -189,12 +206,19 @@ def plan_xconv(nq: int, k: int, cf: int, cp: int, d: int, num_sms: int = H100_SM
     MAX_SPLITS splits (`split_chunks` cuts them; the schedule of
     `chunk_order` gives each its share of lifted chunks). `k` does not
     change the float32 plan: every neighbour of a chunk stays in one split.
-    The bf16 kernel's tiles are BLOCK_Q x `bf16_block_d(k)` and its chunks
-    16 channels wide, taken in order (lifted chunks first)."""
+    The bf16 kernel's chunks are 16 channels wide; its clusters of
+    `bf16_cluster(d)` CTAs walk (query tile, split) items as a persistent
+    grid of num_sms // cluster clusters, so where the query tiles fill
+    fewer, the contraction is split into as many parts as still fit in one
+    round (at most MAX_SPLITS, MIN_SPLIT_CHUNKS chunks each)."""
     if compute_dtype == torch.bfloat16:
-        block_d, align, chunk = bf16_block_d(k), BF16_D_ALIGN, BF16_CHUNK
-    else:
-        block_d, align, chunk = BLOCK_D, D_ALIGN, CHUNK
+        qtiles, cluster = -(-nq // BLOCK_Q), bf16_cluster(d)
+        nch = -(-cf // BF16_CHUNK) + -(-cp // BF16_CHUNK)
+        most = max(1, min(MAX_SPLITS, nch // MIN_SPLIT_CHUNKS))
+        clusters = max(1, num_sms // cluster)
+        splits = min(most, clusters // qtiles) if qtiles < clusters else 1
+        return XConvPlan(qtiles, cluster, splits, cluster)
+    block_d, align, chunk = BLOCK_D, D_ALIGN, CHUNK
     qtiles = -(-nq // BLOCK_Q)
     ntiles = -(-(-(-d // align) * align) // block_d)
     base = qtiles * ntiles
@@ -258,6 +282,8 @@ def _xconv_cuda(pts: torch.Tensor, fts: Optional[torch.Tensor], qrs: torch.Tenso
                          f"got K={k} D={d} Cf={cf}")
     if w.wc.shape[1] != cf + cp:
         raise ValueError(f"weights for Cin={w.wc.shape[1]}, inputs give {cf + cp}")
+    if compute_dtype == torch.bfloat16 and d > BF16_MAX_D:
+        raise ValueError(f"bf16 xconv kernel takes D <= {BF16_MAX_D}, got D={d}")
     _check_dtypes(pts, fts, qrs, w, compute_dtype)
     nq = b * p
     plan = plan_xconv(nq, k, cf, cp, d, sm_count(pts.device), compute_dtype)
@@ -309,7 +335,7 @@ def _launch_xconv(pts, fts, qrs, idx, w: XConvWeights, out, partial, splits: int
     if compute_dtype == torch.bfloat16:
         wt = w.wc_operand_bf16
         wt = xconv_weight_operand_bf16(w.wc, cf) if wt is None else wt
-        kernel, fn, dp = XCONV_BF16_KERNEL, "hfr_xconv_bf16", wt.shape[2]
+        kernel, fn, dp = XCONV_BF16_KERNEL, "hfr_xconv_bf16", wt.shape[0] * wt.shape[4]
     else:
         wt = w.wc_operand if w.wc_operand is not None else xconv_weight_operand(w.wc, cf)
         kernel, fn, dp = XCONV_KERNEL, "hfr_xconv", wt.shape[2] * 8

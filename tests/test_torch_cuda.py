@@ -579,6 +579,15 @@ def _xconv_bf16_case(rng, cuda, k, cf, cp, d, b, p, with_x, n=400):
     (8, 256, 1024, 1024, 4, 64, True),     # few queries: the split path
     (8, 64, 0, 132, 1, 70, False),         # no features, D not a multiple of 128
     (8, 64, 20, 256, 2, 100, True),        # Cp % 8 != 0
+    (4, 64, 32, 256, 1, 130, True),        # K = 4, D 256: consumer tiles of 128, h kept
+    (4, 32, 0, 1024, 1, 200, True),        # K = 4, Cp = 0, a cluster of 2
+    (4, 128, 544, 1024, 1, 50, True),      # K = 4, a cluster of 2 and splits
+    (8, 128, 512, 512, 2, 333, True),      # K = 8, D 512, h recomputed, ragged queries
+    (8, 64, 256, 512, 1, 500, True),       # K = 8, D 512, h kept
+    (8, 128, 512, 1024, 4, 64, False),     # K = 8, a cluster of 2, splits, without X
+    (12, 64, 100, 256, 1, 97, True),       # K = 12, D 256, ragged queries
+    (12, 128, 512, 512, 1, 90, False),     # K = 12, D 512, without X
+    (12, 256, 0, 1024, 2, 40, True),       # K = 12, Cp = 0, a cluster of 2 and splits
 ])
 def test_xconv_bf16_kernel_matches_plain(cuda, k, cf, cp, d, b, p, with_x):
     from heterofusionrcnn_torch.ops.xconv import XCONV_BF16_KERNEL, XCONV_EPILOGUE_BF16_KERNEL
