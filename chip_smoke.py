@@ -25,13 +25,19 @@
    on, counted the same way: per forward 13 fused 3x3 convs and 3 fused
    transposed convs (one VGG pass, the map is shared) and 1 crop gather,
    besides the four kernels of step 3. Times it against the switches-off
-   forward in turns (off, on, on, off).
+   forward in turns (off, on, on, off), and prints the RCNN's whole point
+   crop (`pc_crop_and_sample`, recorded and rerun alone): its ms and its
+   device time by op.
 5. Calls each kernel's wrapper again on the exact inputs those forwards
    gave it (recorded in separate, uncounted forwards, one record per launch
    of the counted ones) and holds the result against the kernel's plain
    PyTorch version: indices bit-exact for KNN, FPS and NMS, the crop gather
    bit-exact, |kernel - plain| <= 1e-4 + 1e-4 |plain| for the fused XConv
-   and the two convs. Every KNN call runs under both arms (brute and
+   and the two convs. The crop also runs the all-distinct call of the same
+   shapes (`idx` uniform over the source, its own bound, bit-exact), and
+   its row gives the kernel alone (torch.profiler device time), the op's
+   host time per call and the other kernels the op launches (casts; must
+   be none). Every KNN call runs under both arms (brute and
    sorted), each bit-exact in indices and distances, and its sorted-arm
    prep (keys, sort, float4 candidates, tile boxes: one kernel) bit-exact
    against `knn_prep_plain`; each call's line gives its arm, ms, both arms'
@@ -158,7 +164,8 @@
    1 `crop_bf16` with them on, and no float32 XConv, conv, transposed conv
    or crop. Each bf16 forward is timed with CUDA events in turns against
    the float32 forward with the same switches (float32, bf16, bf16,
-   float32) and profiled once (device time by kernel name, busy share).
+   float32) and profiled once (device time by kernel name, busy share),
+   and its whole point crop printed as in step 4.
    Every call of the switches-on bf16 forward is held against its plain
    version: KNN, FPS and NMS bit-exact, the crop bit-exact, the XConv,
    split epilogue, conv and transposed conv within BF16_RTOL |plain| +
@@ -748,14 +755,166 @@ def epilogue_row(rows, calls, reps, suffix=""):
         r["calls"].append(dict(shape=f"{s_}x{m}x{d}", ms=ms, plain_ms=pms))
 
 
+def profiled(fn, reps, attempts=3):
+    """Device events of reps calls of fn under torch.profiler: {kernel name:
+    (launches, device ms)}. A trace was seen to drop its first records, and
+    once all of them: up to `attempts` traces are taken, until one holds a
+    device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = {e.key: (e.count, e.device_time_total / 1e3) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.device_time_total > 0}
+        if events:
+            break
+    return events
+
+
+def crop_op_times(fn, kernel, reps):
+    """The crop op `fn` per call: back to back (`ms`, CUDA events), its host
+    time (`host_us`: host clock over reps calls, no synchronisation inside,
+    the median of three), the kernel alone (`kernel_ms`: torch.profiler
+    device time a recorded launch) and the other kernels the op launches a
+    call (`cast_launches`: per recorded crop launch, so records the trace
+    drops do not count). Raises unless each call raised the wrapper's
+    count of `kernel` by one and the profile holds the crop kernel."""
+    import statistics
+
+    import torch
+
+    ms = cuda_ms(fn, reps)
+    hosts = []
+    for _ in range(3):
+        before = kernel.launches
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        hosts.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+        if kernel.launches - before != reps:
+            raise AssertionError(f"{reps} crop op calls launched {kernel.name} "
+                                 f"{kernel.launches - before} times")
+    events = profiled(fn, reps)
+    crop = [v for k, v in events.items() if "crop_gather_kernel" in k]
+    launches = sum(c for c, _ in crop)
+    if not launches:
+        raise AssertionError(f"no crop kernel in the profile: {list(events)}")
+    other = sum(c for k, (c, _) in events.items() if "crop_gather_kernel" not in k)
+    return dict(ms=ms, host_us=statistics.median(hosts),
+                kernel_ms=sum(t for _, t in crop) / launches, cast_launches=other / launches)
+
+
+def crop_row(r, calls, reps):
+    """Row crop or crop_bf16 over the recorded crop calls: a copy, bytes
+    only (each distinct gathered row read once, each output row written
+    once, plus the indices). Each call and the all-distinct call of the
+    same shapes (`idx` uniform over the source from SEED, `distinct_*`, its
+    own bound) held against the plain version bit for bit and timed by
+    `crop_op_times`; the library call is `index_select` on the flattened
+    rows. The op must launch no kernel but its own (`cast_launches` 0)."""
+    import torch
+
+    from heterofusionrcnn_torch.ops import cropping
+
+    r.update(library_ms=0.0, kernel_ms=0.0, host_us=0.0, cast_launches=0.0, distinct_ms=0.0,
+             distinct_kernel_ms=0.0, distinct_bound_ms=0.0)
+    for (src, idx, box_ind), _ in calls:
+        kernel = cropping.CROP_BF16_KERNEL if src.dtype == torch.bfloat16 else cropping.CROP_KERNEL
+        b, n, c = src.shape
+        nb, rr = idx.shape
+        spread = torch.randint(0, n, tuple(idx.shape), generator=torch.Generator().manual_seed(SEED),
+                               dtype=idx.dtype).to(idx.device)
+        times, bytes_ = {}, {}
+        for case, ids in (("recorded", idx), ("distinct", spread)):
+            if not torch.equal(cropping.crop_gather(src, ids, box_ind),
+                               cropping.crop_gather_plain(src, ids, box_ind)):
+                raise AssertionError(f"{r['name']} differs from its plain version ({case} call, "
+                                     f"{b}x{n}x{c} -> {nb}x{rr})")
+            times[case] = crop_op_times(lambda: cropping.crop_gather(src, ids, box_ind), kernel,
+                                        reps)
+            rows_idx = (box_ind.long()[:, None] * n + ids.long()).reshape(-1)
+            distinct = int(torch.unique(rows_idx).numel())
+            bytes_[case] = ((distinct + nb * rr) * c * src.element_size()
+                            + idx.numel() * idx.element_size()
+                            + box_ind.numel() * box_ind.element_size())
+        pms = cuda_ms(lambda: cropping.crop_gather_plain(src, idx, box_ind), reps)
+        flat = src.reshape(b * n, c)
+        rows_idx = (box_ind.long()[:, None] * n + idx.long()).reshape(-1)
+        lms = cuda_ms(lambda: torch.index_select(flat, 0, rows_idx), reps)
+        add_bound(r, bytes_["recorded"], 0.0)
+        rec, dis = times["recorded"], times["distinct"]
+        dis_bound = bytes_["distinct"] / HBM_BYTES_PER_S * 1e3
+        r["ms"] += rec["ms"]
+        r["kernel_ms"] += rec["kernel_ms"]
+        r["host_us"] += rec["host_us"]
+        r["cast_launches"] += rec["cast_launches"] + dis["cast_launches"]
+        r["distinct_ms"] += dis["ms"]
+        r["distinct_kernel_ms"] += dis["kernel_ms"]
+        r["distinct_bound_ms"] += dis_bound
+        r["plain_ms"] += pms
+        r["library_ms"] += lms
+        r["calls"].append(dict(shape=f"{b}x{n}x{c} -> {nb}x{rr}", plain_ms=pms, library_ms=lms,
+                               recorded=rec, distinct=dis, distinct_bound_ms=dis_bound))
+        bound = bytes_["recorded"] / HBM_BYTES_PER_S * 1e3
+        print(f"{r['name']} {b}x{n}x{c} -> {nb}x{rr}: op {rec['ms']:.4f} ms, host "
+              f"{rec['host_us']:.1f} us a call, kernel alone {rec['kernel_ms']:.4f} ms "
+              f"({bound / rec['kernel_ms']:.3f} of its {bound:.4f} ms bound); all-distinct: op "
+              f"{dis['ms']:.4f} ms, kernel alone {dis['kernel_ms']:.4f} ms "
+              f"({dis_bound / dis['kernel_ms']:.3f} of {dis_bound:.4f}); plain {pms:.4f}, "
+              f"index_select {lms:.4f}; other kernels a call {rec['cast_launches']:.0f}",
+              flush=True)
+    if r["cast_launches"]:
+        raise AssertionError(f"{r['name']}: the op launched other kernels besides its own")
+    return r
+
+
+def crop_stage(det, inputs, label, reps=REPS):
+    """The RCNN's whole point crop (`pc_crop_and_sample`) of one forward of
+    `det`, recorded and rerun alone: its ms (CUDA events) and device time
+    by op (torch.profiler: each op's own kernels), printed on one line."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from heterofusionrcnn_torch.models import rcnn as rcnn_module
+
+    rec = Recorder(rcnn_module.pc_crop_and_sample)
+    with patched(rcnn_module, "pc_crop_and_sample", rec):
+        det(*inputs)
+    args, kwargs = rec.calls[0]
+    ms = cuda_ms(lambda: rec.fn(*args, **kwargs), reps)
+    for _ in range(3):  # traces were seen to drop records: take another if this one has none
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            rec.fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = sum(e.device_time_total for e in events
+                     if e.device_type == DeviceType.CUDA and e.device_time_total > 0) / 1e3
+        if device:
+            break
+    ops = sorted(((e.key, e.count, e.self_device_time_total / 1e3) for e in events
+                  if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+                 key=lambda o: -o[2])
+    print(f"crop stage ({label}, pc_crop_and_sample, crop_kernel {kwargs.get('crop_kernel')}): "
+          f"{ms:.4f} ms a call, device {device:.4f} ms; by op: "
+          + ", ".join(f"{k} {c}x {t:.4f}" for k, c, t in ops), flush=True)
+    return dict(ms=ms, device_ms=device,
+                ops=[dict(op=k, count=c, device_ms=t) for k, c, t in ops])
+
+
 def check_kernels(calls, calls_on, reps):
     """Kernel vs plain on every recorded call (`calls`: the switches-off
     forward, `calls_on`: the switched kernels of the switches-on forward);
     times and bounds summed over the calls of one forward."""
-    import torch
     import torch.nn.functional as F
 
-    from heterofusionrcnn_torch.ops import conv, cropping
+    from heterofusionrcnn_torch.ops import conv
 
     rows = {}
 
@@ -818,27 +977,8 @@ def check_kernels(calls, calls_on, reps):
                   f"{kms:.4f} ms, {flops / kms * 1e-9:.2f} TFLOP/s); cuDNN {lms:.4f} ms, "
                   f"{flops / lms * 1e-9:.2f} TFLOP/s", flush=True)
 
-    # Crop gather: a copy, bytes only (each distinct gathered row read once,
-    # each output row written once, plus the indices).
-    r = row("crop", "heterofusionrcnn_torch/ops/csrc/crop.cu")
-    r["library_ms"] = 0.0
-    for (src, idx, box_ind), kw in calls_on[KERNEL_OPS["crop"]]:
-        check_switched("crop", (src, idx, box_ind), kw)
-        ms = cuda_ms(lambda: cropping.crop_gather(src, idx, box_ind), reps)
-        pms = cuda_ms(lambda: cropping.crop_gather_plain(src, idx, box_ind), reps)
-        b, n, c = src.shape
-        nb, rr = idx.shape
-        flat = src.reshape(b * n, c)
-        rows_idx = (box_ind.long()[:, None] * n + idx.long()).reshape(-1)
-        lms = cuda_ms(lambda: torch.index_select(flat, 0, rows_idx), reps)
-        # Source rows read once each: the distinct rows this data gathers.
-        distinct = int(torch.unique(rows_idx).numel())
-        add_bound(r, 4 * (distinct + nb * rr) * c + 4 * (idx.numel() + nb), 0.0)
-        r["ms"] += ms
-        r["plain_ms"] += pms
-        r["library_ms"] += lms
-        r["calls"].append(dict(shape=f"{b}x{n}x{c} -> {nb}x{rr}", ms=ms, plain_ms=pms,
-                               library_ms=lms))
+    crop_row(row("crop", "heterofusionrcnn_torch/ops/csrc/crop.cu"),
+             calls_on[KERNEL_OPS["crop"]], reps)
 
     return finish_rows(rows)
 
@@ -2087,7 +2227,7 @@ def bf16_rows(calls, reps):
     import torch
     import torch.nn.functional as F
 
-    from heterofusionrcnn_torch.ops import conv, cropping, xconv
+    from heterofusionrcnn_torch.ops import conv, xconv
 
     bf16 = torch.bfloat16
     rows = {}
@@ -2225,27 +2365,10 @@ def bf16_rows(calls, reps):
                   f"{err[0]:.3g} ({err[1]:.2f} ulps), not bit-equal {err[2]:.4f}", flush=True)
 
     r = row("crop_bf16", "crop.cu", "crop")
-    r["library_ms"] = 0.0
-    for (src, idx, box_ind), kw in calls[KERNEL_OPS["crop"]]:
+    for (src, _, _), _ in calls[KERNEL_OPS["crop"]]:
         if src.dtype != bf16:
             raise AssertionError(f"a {src.dtype} crop on the bf16 path")
-        if not torch.equal(cropping.crop_gather(src, idx, box_ind),
-                           cropping.crop_gather_plain(src, idx, box_ind)):
-            raise AssertionError("crop_bf16 differs from its plain version")
-        ms = cuda_ms(lambda: cropping.crop_gather(src, idx, box_ind), reps)
-        pms = cuda_ms(lambda: cropping.crop_gather_plain(src, idx, box_ind), reps)
-        b, n, c = src.shape
-        nb, rr = idx.shape
-        flat = src.reshape(b * n, c)
-        rows_idx = (box_ind.long()[:, None] * n + idx.long()).reshape(-1)
-        lms = cuda_ms(lambda: torch.index_select(flat, 0, rows_idx), reps)
-        distinct = int(torch.unique(rows_idx).numel())
-        add_bound(r, 2 * (distinct + nb * rr) * c + 4 * (idx.numel() + nb), 0.0)
-        r["ms"] += ms
-        r["plain_ms"] += pms
-        r["library_ms"] += lms
-        r["calls"].append(dict(shape=f"{b}x{n}x{c} -> {nb}x{rr}", ms=ms, plain_ms=pms,
-                               library_ms=lms))
+    crop_row(r, calls[KERNEL_OPS["crop"]], reps)
     for r in rows.values():
         r["not_bit_equal"] = r["not_bit_equal"] / max(r.pop("elements"), 1)
     return finish_rows(rows)
@@ -2385,6 +2508,7 @@ def bf16_phase(kernels, det32, inputs, launches32, handoff, out_root):
               f"(turns {' '.join(f'{t:.2f}' for t in turns[key])})", flush=True)
     report["turns_ms_f32_bf16_bf16_f32"] = turns
     report["profile_switches_on"] = profile_forward(dets[True], inputs, top=20)
+    report["crop_stage"] = crop_stage(dets[True], inputs, "bf16")
     copies = image_branch_copies(dets[True], inputs)
     report["image_branch_copies_switches_on"] = copies
     print(f"bf16 switches on, copy kernels of the image branch: {copies}", flush=True)
@@ -2619,6 +2743,7 @@ def main(argv=None) -> int:
     print(f"switches off / on: {(ab[0] + ab[3]) / 2:.2f} / {(ab[1] + ab[2]) / 2:.2f} ms "
           f"per batch of {b}", flush=True)
     report["profile_switches_on"] = profile_forward(det_on, inputs)
+    report["crop_stage"] = crop_stage(det_on, inputs, "float32")
     del det_on, out_on
 
     rows = check_kernels(calls, calls_on, REPS)
@@ -2655,7 +2780,8 @@ def main(argv=None) -> int:
     # The KNN row's and the bf16 rows' extra keys; the bf16 convs' kernel
     # alone and their NCHW cuDNN yardstick.
     extra = ("bytes_bound_ms", "visited_bound_ms", "visited_share", "ulps", "not_bit_equal",
-             "kernel_ms", "library_nchw_ms")
+             "kernel_ms", "library_nchw_ms", "host_us", "cast_launches", "distinct_ms",
+             "distinct_kernel_ms", "distinct_bound_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -22,12 +22,14 @@ import torch
 from heterofusionrcnn_torch.core.geometry import points_in_box_3d
 from heterofusionrcnn_torch.ops.dispatch import I, P, CudaKernel, one_device, pointers
 
-CROP_KERNEL = CudaKernel("crop.cu", {"hfr_crop_gather": [P, P, P, P, I, I, I, I]}, exact=False)
+_ARGS = [P, P, P, P] + [I] * 6
+CROP_KERNEL = CudaKernel("crop.cu", {"hfr_crop_gather": _ARGS}, exact=False)
 # The bf16 entry of the same library, counted apart.
-CROP_BF16_KERNEL = CudaKernel("crop.cu", {"hfr_crop_gather_bf16": [P, P, P, P, I, I, I, I]},
-                              exact=False, name="crop_bf16")
+CROP_BF16_KERNEL = CudaKernel("crop.cu", {"hfr_crop_gather_bf16": _ARGS}, exact=False,
+                              name="crop_bf16")
 # Elements of one 16-byte vector, the unit the kernel moves, by dtype.
 _VEC = {torch.float32: 4, torch.bfloat16: 8}
+_INDEX_DTYPES = (torch.int32, torch.int64)
 
 
 def crop_gather(src: torch.Tensor, idx: torch.Tensor, box_ind: torch.Tensor) -> torch.Tensor:
@@ -37,8 +39,9 @@ def crop_gather(src: torch.Tensor, idx: torch.Tensor, box_ind: torch.Tensor) -> 
     Args:
       src (B, N, C) float32 or bf16; idx (Nb, R) int in [0, N); box_ind
       (Nb,) int in [0, B). Indices are not range-checked on the card, which
-      takes rows of whole 16-byte vectors (C % 4 == 0 in float32, C % 8 == 0
-      in bf16) and a 16-byte aligned `src`.
+      takes them int32 or int64 as they are (any other dtype raises), rows
+      of whole 16-byte vectors (C % 4 == 0 in float32, C % 8 == 0 in bf16)
+      and a 16-byte aligned `src`.
     Returns: (Nb, R, C) in src's dtype.
     """
     return torch.ops.hfr.crop_gather(src, idx, box_ind)
@@ -66,18 +69,17 @@ def _crop_cuda(src: torch.Tensor, idx: torch.Tensor, box_ind: torch.Tensor) -> t
                          f"C % 8 == 0, got {src.dtype}, C={c}")
     if box_ind.shape != (nb,):
         raise ValueError(f"box_ind must be ({nb},), got {tuple(box_ind.shape)}")
-    src = src.contiguous()
-    idx32 = idx.to(torch.int32).contiguous()
-    ind32 = box_ind.to(torch.int32).contiguous()
+    if idx.dtype not in _INDEX_DTYPES or box_ind.dtype not in _INDEX_DTYPES:
+        raise ValueError(f"crop kernel takes int32 or int64 indices, got {idx.dtype}, "
+                         f"{box_ind.dtype}")
+    src, idx, box_ind = (t if t.is_contiguous() else t.contiguous() for t in (src, idx, box_ind))
     if src.data_ptr() % 16:
         raise ValueError("crop kernel takes a 16-byte aligned source")
     out = torch.empty((nb, rows, c), dtype=src.dtype, device=src.device)
-    if src.dtype == torch.bfloat16:
-        CROP_BF16_KERNEL.launch("hfr_crop_gather_bf16", *pointers(src, idx32, ind32, out),
-                                I(nb), I(n), I(rows), I(c))
-    else:
-        CROP_KERNEL.launch("hfr_crop_gather", *pointers(src, idx32, ind32, out),
-                           I(nb), I(n), I(rows), I(c))
+    kernel, fn = ((CROP_BF16_KERNEL, "hfr_crop_gather_bf16") if src.dtype == torch.bfloat16
+                  else (CROP_KERNEL, "hfr_crop_gather"))
+    kernel.launch(fn, *pointers(src, idx, box_ind, out), I(nb), I(n), I(rows), I(c),
+                  I(idx.dtype == torch.int64), I(box_ind.dtype == torch.int64))
     return out
 
 

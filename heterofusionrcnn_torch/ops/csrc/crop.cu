@@ -3,23 +3,40 @@
 // Replaces heterofusionrcnn_tpu/ops/pallas_crop.py `crop_gather` /
 // `_crop_gather_kernel`: out[i, r, :] = src[box_ind[i], idx[i, r], :], the
 // feature half of the RCNN's point crop (400 boxes x 512 rows x 288
-// channels at batch 4 on the port's main path).
+// channels at batch 4 on the port's main path, float32 or bf16).
 //
-// Design: a pure copy, so it is exact by construction. One block per
-// (box, group of kRows rows); each warp copies one row at a time, its 32
-// lanes moving consecutive 16-byte vectors (4 float32 or 8 bf16 values; the
-// wrapper takes C % 4 == 0, or C % 8 == 0 in bf16, and 16-byte aligned
-// tensors only), so every read of a source row and every write of an
-// output row is a run of full 32-byte sectors. The kernel moves 16-byte
-// vectors whatever the element type: `hfr_crop_gather` (float32 rows) and
-// `hfr_crop_gather_bf16` (bf16 rows, the bf16 serving path's `rpn_fts`)
-// differ only in the row's length in vectors.
-// The box's batch element and the row indices are read by the block
-// itself. No shared memory: nothing is reused within a block.
+// Bound: bytes. A pure copy, exact by construction: each distinct gathered
+// row is read once, each output row written once (236 MB of output in
+// float32, 118 MB in bf16 at the main path's shape), plus the indices. The
+// output's write stream is most of it, and with random weights most boxes
+// are empty, so their rows all gather row 0 of their batch element: a few
+// source rows are read hundreds of thousands of times.
 //
-// Bound: bytes. Each distinct gathered row is read once and each output
-// row written once (plus the indices); rows repeated by the crop's wrap
-// fill come from L2.
+// Design: one block of 256 threads per 32 consecutive output rows (a 1-D
+// grid over the Nb * R rows, so no limit on the boxes). The block's 32
+// source row offsets are read once into shared memory (32 threads, the
+// indices int32 or int64 as the caller has them: no cast kernel), then its
+// rows are copied as one flat run of 16-byte vectors: thread t takes
+// vectors t, t + 256, ..., kU loads in flight before their stores, so every
+// warp instruction moves 512 contiguous bytes of output and the rows' ends
+// cost no idle lanes. Loads go through L1 (`ld.global.nc`), where the hot
+// rows of empty boxes stay; the output leaves by streaming stores
+// (`st.global.cs`, evict-first), so it does not push source rows out of
+// L2. 28 registers a thread keep 64 warps an SM in flight. The row length
+// in vectors is a run-time value (builds with the main path's 36 and 72 as
+// constants measured the same). Both C entries share the kernel: it moves
+// 16-byte vectors whatever the element type (C % 4 == 0 in float32,
+// C % 8 == 0 in bf16; 16-byte aligned tensors).
+//
+// Tried on this card and dropped (PERF.md; `tools/crop_ablation.py`):
+// rows moved by bulk copies (TMA) through a ring of shared-memory stages on
+// a persistent grid of one-warp CTAs, one bulk store per tile. Bulk copies
+// read L2, not L1, so the empty boxes' copies of one row queued on the L2
+// slice holding it (2.5x slower than this kernel in bf16); reading each
+// run of repeated rows once and replicating it in shared memory left one
+// warp per CTA doing the replication (still 1.6x slower). Persistent warps
+// with 9 loads in flight a lane spilled registers and ran fewer warps
+// (1.2-1.8x slower).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,34 +44,66 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 32;  // rows per block
+constexpr int kRows = 32;  // output rows a block
+constexpr int kU = 4;      // 16-byte loads in flight a thread
 
-// Rows of `vecs` 16-byte vectors.
-__global__ void __launch_bounds__(kThreads)
-crop_gather_kernel(const uint4* __restrict__ src, const int* __restrict__ idx,
-                   const int* __restrict__ box_ind, uint4* __restrict__ out,
-                   int n, int rows, int vecs) {
-  const int box = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const uint4* base = src + (size_t)box_ind[box] * n * vecs;
-  const int r_end = min(rows, (int)(blockIdx.x + 1) * kRows);
-  for (int r = blockIdx.x * kRows + warp; r < r_end; r += kWarps) {
-    const size_t o = (size_t)box * rows + r;
-    const uint4* s4 = base + (size_t)idx[o] * vecs;
-    uint4* d4 = out + o * vecs;
-    for (int k = lane; k < vecs; k += 32) d4[k] = __ldg(s4 + k);
+struct Args {
+  const uint4* src;       // (B, N, C) rows of `vecs` 16-byte vectors
+  const void* idx;        // (Nb, R) int32 or int64
+  const void* box_ind;    // (Nb,) int32 or int64
+  uint4* out;             // (Nb, R, C)
+  long long total;        // Nb * R rows
+  int n, rows, vecs, idx64, box64;
+};
+
+__device__ __forceinline__ long long load_index(const void* p, long long i, int wide) {
+  return wide ? __ldg(static_cast<const long long*>(p) + i) : __ldg(static_cast<const int*>(p) + i);
+}
+
+__device__ __forceinline__ void st_stream(uint4* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(p), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads) crop_gather_kernel(Args a) {
+  __shared__ long long s_off[kRows];  // the block's rows' source offsets, in vectors
+  const int vecs = a.vecs;
+  const long long g0 = (long long)blockIdx.x * kRows;
+  const int cnt = (int)min((long long)kRows, a.total - g0);
+  if ((int)threadIdx.x < cnt) {
+    const long long g = g0 + threadIdx.x;
+    s_off[threadIdx.x] =
+        (load_index(a.box_ind, g / a.rows, a.box64) * a.n + load_index(a.idx, g, a.idx64)) * vecs;
+  }
+  __syncthreads();
+  const int span = cnt * vecs;
+  uint4* dst = a.out + g0 * vecs;
+  for (int p0 = threadIdx.x; p0 < span; p0 += kThreads * kU) {
+    uint4 v[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int p = p0 + u * kThreads;
+      if (p < span) v[u] = __ldg(a.src + s_off[p / vecs] + p % vecs);
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int p = p0 + u * kThreads;
+      if (p < span) st_stream(dst + p, v[u]);
+    }
   }
 }
 
-int launch(const void* src, const int* idx, const int* box_ind, void* out, int nb, int n,
-           int rows, int vecs, cudaStream_t s) {
-  if (nb <= 0 || n <= 0 || rows <= 0 || vecs <= 0 || nb > 65535)
+int launch(const void* src, const void* idx, const void* box_ind, void* out, int nb, int n,
+           int rows, int row_bytes, int idx64, int box64, cudaStream_t s) {
+  const long long total = (long long)nb * rows;
+  const long long grid = (total + kRows - 1) / kRows;  // a 1-D grid: at most 2^31 - 1 blocks
+  if (nb <= 0 || n <= 0 || rows <= 0 || row_bytes <= 0 || row_bytes % 16 || grid > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((rows + kRows - 1) / kRows, nb);
-  crop_gather_kernel<<<grid, kThreads, 0, s>>>(static_cast<const uint4*>(src), idx, box_ind,
-                                               static_cast<uint4*>(out), n, rows, vecs);
+  const int vecs = row_bytes / 16;
+  Args a{static_cast<const uint4*>(src), idx, box_ind, static_cast<uint4*>(out),
+         total, n, rows, vecs, idx64, box64};
+  crop_gather_kernel<<<(unsigned)grid, kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -66,19 +115,22 @@ const char* hfr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// src (B, N, C) float32, idx (Nb, R) int32 in [0, N), box_ind (Nb,) int32 in
-// [0, B); out (Nb, R, C). C % 4 == 0, src and out 16-byte aligned.
-int hfr_crop_gather(const float* src, const int* idx, const int* box_ind,
-                    float* out, int nb, int n, int rows, int c, void* stream) {
+// src (B, N, C) float32, idx (Nb, R) in [0, N), box_ind (Nb,) in [0, B),
+// each int32 or int64 (idx64, box64 say which); out (Nb, R, C). C % 4 == 0,
+// src and out 16-byte aligned.
+int hfr_crop_gather(const float* src, const void* idx, const void* box_ind, float* out, int nb,
+                    int n, int rows, int c, int idx64, int box64, void* stream) {
   if (c <= 0 || c % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(src, idx, box_ind, out, nb, n, rows, c / 4, static_cast<cudaStream_t>(stream));
+  return launch(src, idx, box_ind, out, nb, n, rows, c * 4, idx64, box64,
+                static_cast<cudaStream_t>(stream));
 }
 
 // The same with src and out bf16 (2-byte elements); C % 8 == 0.
-int hfr_crop_gather_bf16(const void* src, const int* idx, const int* box_ind, void* out,
-                         int nb, int n, int rows, int c, void* stream) {
+int hfr_crop_gather_bf16(const void* src, const void* idx, const void* box_ind, void* out, int nb,
+                         int n, int rows, int c, int idx64, int box64, void* stream) {
   if (c <= 0 || c % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(src, idx, box_ind, out, nb, n, rows, c / 8, static_cast<cudaStream_t>(stream));
+  return launch(src, idx, box_ind, out, nb, n, rows, c * 2, idx64, box64,
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -537,6 +537,100 @@ def test_crop_gather_kernel_refuses_ragged_rows(cuda):
         crop_gather(src, idx, torch.zeros(1, dtype=torch.int32, device=cuda))
 
 
+def _crop_data(rng, b, n, nb, r, data):
+    """idx (nb, r) and box_ind (nb,) as numpy int64: "recorded" like the main
+    path's call under random weights (nine boxes in ten empty, so all their
+    rows index 0; the rest wrap a few members), "distinct" uniform over the
+    source, "unsorted" uniform with box_ind in no order."""
+    box_ind = np.sort(rng.integers(0, b, nb))
+    if data == "recorded":
+        idx = np.zeros((nb, r), np.int64)
+        for i in np.flatnonzero(rng.uniform(size=nb) < 0.1):
+            members = np.sort(rng.choice(n, int(rng.integers(1, 2 * r)), replace=False))[:r]
+            idx[i] = members[np.arange(r) % len(members)]
+    else:
+        idx = rng.integers(0, n, (nb, r))
+        if data == "unsorted":
+            box_ind = rng.integers(0, b, nb)
+    return idx, box_ind
+
+
+def _crop_rows(case):
+    """Rows a box for the card cases: one block's rows (crop.cu's kRows, 32)
+    plus one, or one and a half blocks' plus three."""
+    return {"block+1": 33, "ragged": 51}.get(case, case)
+
+
+# (B, N, C, Nb, R, data, idx dtype, box_ind dtype): the main path's call
+# recorded-like and all-distinct, R of 1, of one block's rows (32) plus one
+# and of no multiple of them, rows of one 16-byte vector (C 4 in float32, 8 in
+# bf16: "vec"), unsorted box_ind, int32 and int64 indices, and 70,000 boxes
+# (beyond a grid dimension's 65,535).
+CROP_CASES = [
+    (4, 16384, 288, 400, 512, "recorded", torch.int32, torch.int64),
+    (4, 16384, 288, 400, 512, "distinct", torch.int32, torch.int64),
+    (2, 300, 40, 7, 1, "distinct", torch.int64, torch.int64),
+    (2, 300, 40, 7, "block+1", "distinct", torch.int32, torch.int32),
+    (3, 500, 288, 5, "ragged", "distinct", torch.int64, torch.int32),
+    (1, 64, "vec", 3, 33, "distinct", torch.int32, torch.int32),
+    (2, 100, "vec", 9, 70, "unsorted", torch.int64, torch.int64),
+    (4, 2000, 288, 60, 512, "unsorted", torch.int32, torch.int64),
+    (4, 1000, 16, 70000, 8, "distinct", torch.int32, torch.int64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("b,n,c,nb,r,data,idx_dtype,box_dtype", CROP_CASES)
+def test_crop_gather_kernel_cases_match_plain(cuda, dtype, b, n, c, nb, r, data, idx_dtype,
+                                              box_dtype):
+    """Each entry of crop.cu against crop_gather_plain, bit for bit, with
+    exactly one launch of its kernel (no cast kernel: the indices go in as
+    they are)."""
+    from heterofusionrcnn_torch.ops.cropping import CROP_BF16_KERNEL, CROP_KERNEL
+
+    size = 4 if dtype == torch.float32 else 2
+    c = 16 // size if c == "vec" else c
+    r = _crop_rows(r)
+    rng = np.random.default_rng(10)
+    idx, box_ind = _crop_data(rng, b, n, nb, r, data)
+    src = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32)).to(cuda).to(dtype)
+    idx = torch.from_numpy(idx).to(cuda, idx_dtype)
+    box_ind = torch.from_numpy(box_ind).to(cuda, box_dtype)
+    kernel = CROP_KERNEL if dtype == torch.float32 else CROP_BF16_KERNEL
+    before = kernel.launches
+    got = crop_gather(src, idx, box_ind)
+    assert kernel.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (nb, r, c)
+    assert torch.equal(got, crop_gather_plain(src, idx, box_ind))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+def test_crop_op_launches_one_kernel(cuda, dtype):
+    """The op on the main path's index dtypes (int32 idx, int64 box_ind)
+    launches the crop kernel and nothing else (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(11)
+    idx, box_ind = _crop_data(rng, 4, 2000, 40, 512, "recorded")
+    src = torch.from_numpy(rng.standard_normal((4, 2000, 288)).astype(np.float32))
+    src, idx, box_ind = src.to(cuda, dtype), torch.from_numpy(idx).to(cuda, torch.int32), \
+        torch.from_numpy(box_ind).to(cuda)
+    crop_gather(src, idx, box_ind)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            crop_gather(src, idx, box_ind)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.device_time_total > 0}
+    assert len(kernels) == 1 and "crop_gather_kernel" in next(iter(kernels)), kernels
+    assert next(iter(kernels.values())) == 3
+
+
 # The bf16 forms (compute_dtype "bfloat16"): each kernel against its plain
 # bf16 version, which rounds at the same points. Tolerance: 2^-7 |plain| (two
 # bf16 ulps where the spacing is finest, one where it is coarsest: a float32
