@@ -197,6 +197,34 @@
    checkpoint), batch 1, `--num_rois 100`: per forward KNN 4, FPS 3, bf16
    XConv 4, NMS 1 (plus split epilogues), nothing else; its files checked
    as in step 10 and its ms per frame printed.
+13. Data parallelism (`dp_phase`, `heterofusionrcnn_torch/parallel`), each
+   run of ranks in processes started by `spawn` (tests/torch_dp_worker.py
+   `run_steps`), joined within DP_DEADLINE_S. (a) Two full-width
+   `rpn_multiclass` train steps at batch 2 (the fixture train frames,
+   dropout and path drop on, the EMA on) through a real one-rank NCCL group
+   in a child process, against the same two steps with no group in this
+   process, from the same weights and generators. (b) The same two steps
+   on two gloo ranks sharing the card, one frame a rank, against this
+   process's steps at batch 2; then two `rcnn_unittest` steps (the
+   synthetic handoff of tests/rcnn_fixtures.py, a positive RoI) the same
+   way. Each step of the ranks starts from the one-process state before
+   it, and is held as `params_agree` holds a step: metrics within
+   LOSS_TOL, the step's gradients (from Adam's first moment) and its
+   parameters, statistics and EMA within PARAM_TOL, widened by 2 x lr where
+   the two gradients agree only within the absolute part; the RCNN's
+   gradients as `grads_agree` holds them, and the full-width RPN's
+   image-branch gradients at two ranks within DP_IMAGE_GRAD_SHARE of the
+   tensor's largest |element|, beside the measured float32 resolution
+   printed before (`frame_swap_resolution`: one process, its two frames
+   swapped). Every rank counts its launches a step (KNN, its sorted-arm
+   prep and FPS at full width; KNN and FPS in the small RCNN, whose sets
+   take the brute arm) and holds one KNN and one FPS call of its second
+   step bit-exact against the plain version. Prints each rank's step ms,
+   the all-reduces of a step (count and bytes) and the gradient all-reduce
+   alone (its bytes, ms and share of the second step) beside the card's
+   name and power limit; ranks that share one card say nothing of
+   multi-card speed. (c) `run_training --num_devices 2` on the one card
+   raises before any rank starts.
 
 Prints a {"kernels": [...]} JSON line, then the result as its last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -2636,6 +2664,296 @@ def bf16_phase(kernels, det32, inputs, launches32, handoff, out_root):
     return report, rows
 
 
+# Step 13, data parallelism: runs of ranks in spawned processes, each
+# joined within DP_DEADLINE_S (a dead rank fails the phase, not the card).
+DP_STEPS = 2
+DP_DEADLINE_S = 300
+# Launched by every rank's train step: the full-width RPN's KNN takes the
+# sorted arm (with its prep) for its large sets; the rcnn_unittest RCNN's
+# sets are all below KNN_SORTED_MIN_N (the brute arm, RCNN_KERNELS).
+DP_KERNELS = ("knn", "knn_prep", "fps")
+# The full-width RPN's image branch: its float32 gradients at batch 2 move
+# by a few hundredths of a tensor's largest |element| when one process only
+# swaps the two frames of its batch (the same sums in another order; up to
+# 4.7e-2 on an H100, `frame_swap_resolution`, printed every run), so the
+# ranks' image-branch gradients are held within DP_IMAGE_GRAD_SHARE x that
+# largest |element| (every other gradient as `params_agree` holds it).
+DP_IMAGE_GRAD_SHARE = 5e-2
+
+
+def dp_rank(rank, world_size, init_method, spec_path, out_dir, backend):
+    """One rank of step 13 on the card: `run_steps` of the saved spec in a
+    group of `backend` (at world size 1 a real one-rank group, which
+    `initialize_distributed` would not form), each step counted and timed
+    (`StepMonitor`), one KNN and one FPS call of the second step held
+    bit-exact, the all-reduces of the steps counted, then the gradient
+    all-reduce timed alone; results to <out_dir>/rank<rank>.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from heterofusionrcnn_torch.experiments.common import make_rcnn_train_step
+    from heterofusionrcnn_torch.ops import grouping, sampling
+    from heterofusionrcnn_torch.parallel import distributed
+    from heterofusionrcnn_torch.parallel.mesh import all_reduce_flat
+    from heterofusionrcnn_torch.runtime.train_state import make_rpn_train_step
+    from tests import torch_dp_worker
+
+    spec = torch.load(spec_path, weights_only=False)
+    if world_size == 1:
+        torch.cuda.set_device(0)
+        dist.init_process_group(backend, init_method=init_method, rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=DP_DEADLINE_S),
+                                device_id=torch.device("cuda", 0))
+        group = dist.group.WORLD
+    else:
+        group = distributed.initialize_distributed(rank, world_size, init_method, "cuda",
+                                                   backend)["group"]
+    try:
+        kernels = {"knn": grouping.KNN_KERNEL, "knn_prep": grouping.KNN_PREP_KERNEL,
+                   "fps": sampling.FPS_KERNEL}
+        monitor = StepMonitor(kernels, make_rpn_train_step if spec["kind"] == "rpn"
+                              else make_rcnn_train_step)
+        reduced = []
+        all_reduce = dist.all_reduce
+
+        def counted(t, *args, **kwargs):
+            reduced.append(t.numel() * t.element_size())
+            return all_reduce(t, *args, **kwargs)
+
+        with patched(dist, "all_reduce", counted), torch.enable_grad():
+            res = torch_dp_worker.run_steps(spec, group, "cuda", monitor.factory)
+        for name in ("knn", "fps"):
+            check_index_exact(name, *monitor.calls[KERNEL_OPS[name]][0])
+        # The step's one all-reduce: every gradient and the loss shares.
+        n = sum(t.numel() for t in res["steps"][0]["optimizer"]["state"]["mu"].values())
+        buf = torch.zeros(n + len(res["steps"][0]["metrics"]), device="cuda")
+        all_reduce_flat([buf], group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            all_reduce_flat([buf], group)
+        torch.cuda.synchronize()
+        res.update(rank=rank, backend=backend, launches=[s["launches"] for s in monitor.steps],
+                   steps_ms=[s["ms"] for s in monitor.steps],
+                   all_reduces_per_step=len(reduced) / DP_STEPS,
+                   all_reduce_bytes_per_step=sum(reduced) / DP_STEPS,
+                   grad_all_reduce_bytes=buf.numel() * buf.element_size(),
+                   grad_all_reduce_ms=(time.perf_counter() - t0) * 1e3 / REPS)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown_distributed()
+
+
+def dp_grads_close(got, want, name):
+    """The full-width RPN's gradient tolerance of step 13: PARAM_TOL, and in
+    the image branch an atol of DP_IMAGE_GRAD_SHARE x the tensor's largest
+    |element| where that is larger."""
+    share = DP_IMAGE_GRAD_SHARE if name.startswith("img_vgg_pyr.") else 0.0
+    atol = max(PARAM_TOL["atol"], share * float(want.abs().max()))
+    return bool(((got - want).abs() <= atol + PARAM_TOL["rtol"] * want.abs()).all())
+
+
+def frame_swap_resolution(cfg, batch):
+    """How far float32 resolves the gradients of `cfg`'s RPN (dropout and
+    path drop off) on the card at a batch of 2: the largest |difference|
+    between the gradients of the batch and of its frames swapped, over the
+    tensor's largest |gradient|, the largest in the image branch and
+    elsewhere."""
+    import torch
+
+    from heterofusionrcnn_torch.inference import exact_float32
+    from heterofusionrcnn_torch.models.extractors.layers import init_weights
+    from heterofusionrcnn_torch.runtime.train_state import RPN_BATCH_KEYS
+    from tests import torch_dp_worker
+
+    exact_float32()
+    model, loss_fn = torch_dp_worker.build("rpn", no_dropout(cfg))
+    model = init_weights(model, SEED).cuda().train()
+    grads = []
+    for order in ([0, 1], [1, 0]):
+        model.zero_grad()
+        with torch.enable_grad():
+            loss_fn(model(*(torch.from_numpy(batch[k][order]).cuda()
+                            for k in RPN_BATCH_KEYS)))[1].backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    out = {"image branch": 0.0, "other": 0.0}
+    for n, g in grads[0].items():
+        scale = float(g.abs().max())
+        if scale > 1e-5:  # gradients of 0 in exact arithmetic aside
+            part = "image branch" if n.startswith("img_vgg_pyr.") else "other"
+            out[part] = max(out[part], float((grads[1][n] - g).abs().max()) / scale)
+    del model, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_steps_agree(got, want, lr, grads_close=None):
+    """One rank's steps (each from the one-process state before it) against
+    the one-process steps: per step the metrics within LOSS_TOL and
+    `params_agree` on the module state and on the EMA, the gradients read
+    from Adam's first moment. Returns the failures and, per step, the
+    elements widened by 2 x lr."""
+    from heterofusionrcnn_torch.runtime.optimizer import ADAM_B1
+
+    bad, widened = [], []
+    for i, (g, w) in enumerate(zip(got["steps"], want["steps"])):
+        for key, val in w["metrics"].items():
+            if abs(g["metrics"][key] - val) > LOSS_TOL["atol"] + LOSS_TOL["rtol"] * abs(val):
+                bad.append(f"step {i + 1} {key}")
+        before = want["steps"][i - 1]["optimizer"]["state"]["mu"] if i else None
+
+        def grads(st):
+            return {n: (m - (ADAM_B1 * before[n] if i else 0.0)) / (1 - ADAM_B1)
+                    for n, m in st["optimizer"]["state"]["mu"].items()}
+
+        gg, gw = grads(g), grads(w)
+        step_bad, noise = params_agree(g["state_dict"], w["state_dict"], gg, gw, lr, grads_close)
+        for n in step_bad:  # how far a failing gradient is off, for the message
+            if n.startswith("gradient of "):
+                d = (gg[n[12:]].cpu() - gw[n[12:]]).abs()
+                scale = float(gw[n[12:]].abs().max())
+                print(f"step {i + 1} {n}: largest |difference| {float(d.max()):.3g} = "
+                      f"{float(d.max()) / scale:.3g} x the largest |gradient| {scale:.3g}; "
+                      f"{int((d > PARAM_TOL['atol'] + PARAM_TOL['rtol'] * gw[n[12:]].abs()).sum())}"
+                      f" of {d.numel()} outside", flush=True)
+        ema_bad, _ = params_agree(g["optimizer"]["ema"], w["optimizer"]["ema"], gg, gw, lr,
+                                  grads_close)
+        bad += [f"step {i + 1} {n}" for n in step_bad] + [f"step {i + 1} EMA {n}" for n in ema_bad]
+        widened.append(sum(noise.values()))
+    return bad, widened
+
+
+def dp_run(spec, world, backend, root, label, grads_close=None, kernels=DP_KERNELS):
+    """`spec`'s steps in this process (no group) and on `world` ranks of
+    `backend` (each step from this process's state before it): the checks
+    of step 13 (module docstring), each rank's steps launching `kernels`;
+    returns the report."""
+    import torch
+
+    from heterofusionrcnn_torch.parallel.distributed import spawn_ranks
+    from tests import torch_dp_worker
+
+    with torch.enable_grad():
+        want = torch_dp_worker.run_steps(spec, None, "cuda")
+    torch.cuda.empty_cache()
+    spec = dict(spec, restarts=[None] + [{k: st[k] for k in ("state_dict", "optimizer")}
+                                         for st in want["steps"][:-1]])
+    out = os.path.join(root, label)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    spec_path = os.path.join(out, "spec.pt")
+    torch.save(spec, spec_path)
+    t0 = time.perf_counter()
+    spawn_ranks(dp_rank, world, args=(spec_path, out, backend), timeout_s=DP_DEADLINE_S,
+                rendezvous_dir=out)
+    wall_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    lr = spec["cfg"].train_config.optimizer.initial_learning_rate
+    report = dict(label=label, world=world, backend=backend, wall_s=wall_s,
+                  one_process_metrics=[st["metrics"] for st in want["steps"]], ranks=[])
+    for res in ranks:
+        bad, widened = dp_steps_agree(res, want, lr, grads_close)
+        if bad:
+            raise AssertionError(f"{label} rank {res['rank']} differs from one process: {bad[:8]}")
+        for i, launched in enumerate(res["launches"]):
+            if not all(launched[k] for k in kernels):
+                raise AssertionError(f"{label} rank {res['rank']} step {i + 1} launches {launched}")
+        share = res["grad_all_reduce_ms"] / res["steps_ms"][-1]  # of the warm step
+        report["ranks"].append(dict(
+            rank=res["rank"], steps_ms=res["steps_ms"], launches=res["launches"],
+            widened=widened, metrics=[st["metrics"] for st in res["steps"]],
+            all_reduces_per_step=res["all_reduces_per_step"],
+            all_reduce_bytes_per_step=res["all_reduce_bytes_per_step"],
+            grad_all_reduce_bytes=res["grad_all_reduce_bytes"],
+            grad_all_reduce_ms=res["grad_all_reduce_ms"], grad_all_reduce_share=share))
+        print(f"{label} rank {res['rank']}/{world} ({backend}): steps "
+              + " ".join(f"{t:.2f}" for t in res["steps_ms"])
+              + f" ms; {res['all_reduces_per_step']:.0f} all-reduces a step "
+              f"({res['all_reduce_bytes_per_step'] / 1e6:.3f} MB); the gradient all-reduce "
+              f"alone {res['grad_all_reduce_bytes'] / 1e6:.3f} MB in "
+              f"{res['grad_all_reduce_ms']:.3f} ms ({share:.3f} of the second step); launches "
+              "a step "
+              + "; ".join(" ".join(f"{k}={v}" for k, v in l.items() if k in kernels)
+                          for l in res["launches"])
+              + f"; {widened} elements widened by 2 x lr; agrees with one process", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return report
+
+
+def dp_phase(out_root):
+    """Step 13 (module docstring): NCCL at world size 1, two gloo ranks on
+    the card at full width (RPN) and at rcnn_unittest width (RCNN), and the
+    CLI's guard."""
+    import copy
+
+    from heterofusionrcnn_torch.experiments import common, run_training
+    from heterofusionrcnn_torch.models.extractors.layers import init_weights
+    from heterofusionrcnn_torch.runtime.train_state import RPN_BATCH_KEYS
+    from tests import torch_dp_worker
+    from tests.rcnn_fixtures import grads_agree, write_handoff
+
+    root = os.path.join(out_root, "chip_smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    card = card_line()
+    print(f"data parallelism on {card}: ranks that share one card say nothing of "
+          "multi-card speed; NCCL runs at world size 1 only on a single card", flush=True)
+    report = dict(card=card)
+
+    def spec(kind, cfg, batches):
+        cfg.train_config.optimizer.use_moving_average = True  # the EMA is held too
+        cfg.train_config.optimizer.moving_average_decay = 0.9
+        model, _ = torch_dp_worker.build(kind, cfg)
+        init_weights(model, SEED)
+        return dict(kind=kind, cfg=cfg, state_dict=model.state_dict(), seed=SEED,
+                    batches=batches)
+
+    cfg = common.resolve_config("rpn_multiclass", KITTI_DIR)
+    dataset = common.build_dataset(cfg, "train", "train")
+    dataset.seed(SEED)
+    next_batch = common.make_batch_fn(cfg, dataset, "rpn", 2)
+    rpn = spec("rpn", cfg, [next_batch() for _ in range(DP_STEPS)])
+    if set(rpn["batches"][0]) != set(RPN_BATCH_KEYS):
+        raise AssertionError(f"batch keys {sorted(rpn['batches'][0])}")
+    report["frame_swap_resolution"] = frame_swap_resolution(copy.deepcopy(cfg),
+                                                            rpn["batches"][0])
+    print("rpn_multiclass gradients, one process, frames swapped: largest |difference| / "
+          "largest |gradient| " + ", ".join(f"{k} {v:.3g}"
+                                          for k, v in report["frame_swap_resolution"].items())
+          + f" (the ranks' image branch is held within {DP_IMAGE_GRAD_SHARE})", flush=True)
+    report["nccl_world1"] = dp_run(rpn, 1, "nccl", root, "rpn_multiclass_nccl_w1")
+    report["gloo_rpn"] = dp_run(rpn, 2, "gloo", root, "rpn_multiclass_gloo_w2", dp_grads_close)
+
+    cfg = common.resolve_config("rcnn_unittest", KITTI_DIR)
+    dataset = common.build_dataset(cfg, "train", "train")
+    dataset.seed(SEED)
+    dataset.proposal_dir, dataset.proposal_iou_dir, dataset.rpn_feature_dir = write_handoff(
+        dataset, os.path.join(root, "rcnn_handoff"))
+    next_batch = common.make_batch_fn(cfg, dataset, "rcnn", 2)
+    rcnn = spec("rcnn", cfg, [next_batch() for _ in range(DP_STEPS)])
+    report["gloo_rcnn"] = dp_run(rcnn, 2, "gloo", root, "rcnn_unittest_gloo_w2", grads_agree,
+                                 RCNN_KERNELS)
+    if not all(m["rcnn_reg_loss"] > 0 for m in report["gloo_rcnn"]["one_process_metrics"]):
+        raise AssertionError("an rcnn_unittest step without a positive RoI")
+
+    started = []
+    with patched(run_training, "spawn_ranks", lambda *a, **k: started.append(a)):
+        try:
+            run_training.main(["--pipeline_config", "rpn_multiclass", "--num_devices", "2",
+                               "--dataset_dir", KITTI_DIR, "--output_root", root])
+        except ValueError as exc:
+            report["cli_guard"] = str(exc)
+        else:
+            raise AssertionError("run_training --num_devices 2 did not raise on one card")
+    if started:
+        raise AssertionError("run_training started ranks before its guard")
+    print(f"run_training --num_devices 2 on one card: {report['cli_guard']}", flush=True)
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="outputs", help="directory for chip_smoke.json")
@@ -2771,6 +3089,7 @@ def main(argv=None) -> int:
                                                   launches, report["rcnn_eval"].pop("handoff"),
                                                   args.out)
     rows.update(bf16_kernel_rows)
+    report["data_parallel"] = dp_phase(args.out)
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

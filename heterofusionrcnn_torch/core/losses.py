@@ -4,11 +4,20 @@ Each loss is the elementwise loss times a scalar or classwise weight,
 reduced over the last axis only; the models sum and normalise (by the
 foreground count, with a guard against zero) at the call site, the bin
 heads' through `bin_losses`.
+
+Under data parallelism (a process group) a rank's loss is its share of the
+global batch's: the sum over its own rows divided by the count over the
+global batch, so that the ranks' shares add up to the one-process loss.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
+
+from heterofusionrcnn_torch.parallel.mesh import all_reduce_sum
 
 
 def weighted_smooth_l1(prediction: torch.Tensor, target: torch.Tensor, weight=1.0) -> torch.Tensor:
@@ -52,12 +61,15 @@ def one_hot_smooth(labels: torch.Tensor, num_classes: int, epsilon: float = 0.00
     return one_hot(labels, num_classes) * (on - off) + off
 
 
-def bin_losses(cls_preds, cls_gts, reg_preds, reg_gts, mask: torch.Tensor, lw):
+def bin_losses(cls_preds, cls_gts, reg_preds, reg_gts, mask: torch.Tensor, lw,
+               group: Optional[dist.ProcessGroup] = None):
     """The bin heads' losses over the rows of `mask` (float, 1 where a row
     counts): the bins' softmax cross-entropy and the residuals' smooth L1,
     each summed over the heads and normalised by the mask's count (0 when
-    the count is 0). Shared by the RPN's `rpn_loss` and the RCNN's `rcnn_loss`."""
-    num = mask.sum()
+    the count is 0). Shared by the RPN's `rpn_loss` and the RCNN's `rcnn_loss`.
+    With a data-parallel `group` the count is the global batch's (this
+    rank's share of the loss; a rank without rows of its own adds 0)."""
+    num = all_reduce_sum(mask.sum(), group)
     safe = num.clamp(min=1.0)
     zero = torch.zeros((), device=mask.device)
     cls_loss = 0.0

@@ -18,6 +18,7 @@ from heterofusionrcnn_torch.datasets.kitti.dataset import KittiDataset
 from heterofusionrcnn_torch.inference import TwoStageDetector
 from heterofusionrcnn_torch.models.rcnn import RcnnModel, rcnn_loss
 from heterofusionrcnn_torch.models.rpn import RpnModel, rpn_fts_channels, rpn_loss
+from heterofusionrcnn_torch.parallel.mesh import rows_per_rank
 from heterofusionrcnn_torch.runtime.train_state import RPN_BATCH_KEYS, TrainState, train_step
 
 PRESETS = {
@@ -63,19 +64,21 @@ def cluster_sizes_tuple(dataset):
     )
 
 
-def build_model(cfg, dataset, mode: str, save_rpn_feature: bool = False):
+def build_model(cfg, dataset, mode: str, save_rpn_feature: bool = False, group=None):
     """The model of `cfg` (the RPN or the RCNN) in `mode` ("train", "val"
     or "test") with the dataset's classes and mean sizes, on the CPU, and
     its loss function (predictions -> (loss_dict, total)). The RCNN takes
     its target thresholds from the dataset's mini-batch config and its
     distance normaliser from the far BEV extent; `save_rpn_feature` makes
-    the RPN return its per-point features (the RPN evaluator's handoff)."""
+    the RPN return its per-point features (the RPN evaluator's handoff).
+    With a data-parallel `group` the loss is this rank's share of the
+    global loss (the model takes the group from `TrainState.create`)."""
     mc = cfg.model_config
     clusters = cluster_sizes_tuple(dataset)
     if mc.model_name == "rpn_model":
         model = RpnModel(mc, dataset.num_classes, clusters,
                          save_rpn_feature=save_rpn_feature, mode=mode)
-        return model, lambda preds: rpn_loss(preds, mc)
+        return model, lambda preds: rpn_loss(preds, mc, group)
     mb = cfg.dataset_config.mini_batch_config
     model = RcnnModel(
         mc, dataset.num_classes, clusters, rpn_fts_channels(mc),
@@ -84,7 +87,7 @@ def build_model(cfg, dataset, mode: str, save_rpn_feature: bool = False):
         cls_pos_iou_lo=mb.cls_iou_3d_thresholds.pos_iou_lo,
         reg_pos_iou_lo=mb.reg_iou_3d_thresholds.pos_iou_lo,
     )
-    return model, lambda preds: rcnn_loss(preds, mc)
+    return model, lambda preds: rcnn_loss(preds, mc, group)
 
 
 RCNN_BATCH_KEYS = (
@@ -113,12 +116,17 @@ def make_rcnn_train_step(loss_fn: Callable) -> Callable[[TrainState, Dict[str, t
     return rcnn_step
 
 
-def make_batch_fn(cfg, dataset, model_kind: str, batch_size: int):
+def make_batch_fn(cfg, dataset, model_kind: str, batch_size: int, group=None):
     """next_batch() -> a shuffled host batch (numpy) of the stage
     `model_kind` ("rpn" or "rcnn"), exactly the keys its train step reads
     (`RPN_BATCH_KEYS` / `RCNN_BATCH_KEYS`), at the config's point count and
     image size; the RCNN's with the config's `roi_per_sample` RoIs a frame,
-    its feature files checked against the config's stage-1 width."""
+    its feature files checked against the config's stage-1 width. With a
+    data-parallel `group`, `batch_size` is the global batch and each rank
+    loads its batch_size / world rows from `dataset`, its own shard
+    (`parallel.distributed.shard_dataset_for_host`); the RCNN's handoff
+    files are those of the shard's frames."""
+    batch_size = rows_per_rank(batch_size, group)
     ic = cfg.model_config.input_config
     if model_kind == "rpn":
         keys = RPN_BATCH_KEYS

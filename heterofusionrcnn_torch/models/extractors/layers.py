@@ -32,10 +32,12 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from heterofusionrcnn_torch.ops.conv import conv3x3_affine_relu, convtranspose3x3_affine_relu
+from heterofusionrcnn_torch.parallel.mesh import all_reduce_sum
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01
@@ -64,16 +66,30 @@ def batch_norm_eval_promoted(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tenso
 
 
 def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
-                     channel_dim: int) -> torch.Tensor:
+                     channel_dim: int,
+                     group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """flax `nn.BatchNorm` in training: normalise by the batch mean and the
     biased batch variance E[x^2] - E[x]^2 (clamped at 0, flax's fast
     variance) over every dimension but `channel_dim`, and move the running
-    statistics to (1 - momentum) * running + momentum * batch."""
+    statistics to (1 - momentum) * running + momentum * batch.
+
+    With a data-parallel `group` the batch is the global one: the mean and
+    E[x^2] come from the sums of x and x^2 all-reduced over the group (one
+    all-reduce, differentiable, `parallel/mesh.py`) over the global count
+    of elements, so every rank normalises and moves its running statistics
+    alike."""
     dims = [d for d in range(x.dim()) if d != channel_dim % x.dim()]
     shape = [1] * x.dim()
     shape[channel_dim] = x.shape[channel_dim]
-    mean = x.mean(dims)
-    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    if group is None:
+        mean = x.mean(dims)
+        mean_sq = (x * x).mean(dims)
+    else:
+        c = x.shape[channel_dim]
+        sums = all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims)]), group)
+        count = (x.numel() // c) * dist.get_world_size(group)
+        mean, mean_sq = sums[:c] / count, sums[c:] / count
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
         bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
@@ -82,14 +98,17 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
 
 
 class BatchNorm(nn.BatchNorm1d):
-    """BatchNorm over the last dimension of a (..., C) tensor."""
+    """BatchNorm over the last dimension of a (..., C) tensor; `dp_group`:
+    the data-parallel group whose global batch it normalises over in
+    training (None: this process's batch)."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.dp_group: Optional[dist.ProcessGroup] = None
 
     def forward(self, x):
         if self.training:
-            return batch_norm_train(self, x, -1)
+            return batch_norm_train(self, x, -1, self.dp_group)
         if x.dtype != torch.float32:
             return batch_norm_eval_promoted(self, x, -1)
         shape = x.shape
@@ -102,29 +121,43 @@ class BatchNorm(nn.BatchNorm1d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm over the channels of an NCHW tensor."""
+    """BatchNorm over the channels of an NCHW tensor (`dp_group` as
+    `BatchNorm`'s)."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.dp_group: Optional[dist.ProcessGroup] = None
 
     def forward(self, x):
         if self.training:
-            return batch_norm_train(self, x, 1)
+            return batch_norm_train(self, x, 1, self.dp_group)
         if x.dtype != torch.float32:
             return batch_norm_eval_promoted(self, x, 1)
         return super().forward(x)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """flax `nn.Dropout` in training: keep each element with probability
     1 - rate (a uniform draw from `generator` below it) and scale the kept
-    ones by 1 / (1 - rate)."""
+    ones by 1 / (1 - rate).
+
+    With a data-parallel `group` the draw is the global batch's (leading
+    axis x world size) and this rank keeps its rows of it, so its mask is
+    its rows of a one-process mask and every rank's generator advances
+    alike."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if group is None:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    else:
+        rank, b = dist.get_rank(group), x.shape[0]
+        shape = (b * dist.get_world_size(group), *x.shape[1:])
+        draw = torch.rand(shape, generator=generator, device=x.device)
+        mask = draw[rank * b:(rank + 1) * b] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -193,6 +193,7 @@ class PointCNN(nn.Module):
         if config.sampling != "fps":
             raise NotImplementedError(f"sampling {config.sampling!r} is not ported")
         self.config = config
+        self.dp_group = None  # the data-parallel group of the fc dropout draws
         dt = dict(dtype=dtype)
         xconvs, xdconvs = config.xconv_layers, config.xdconv_layers
         out_ch: List[int] = [in_channels]
@@ -286,5 +287,5 @@ class PointCNN(nn.Module):
         for i, fc in enumerate(cfg.fc_layers):
             output_fts = getattr(self, f"fc{i}")(output_fts)
             if self.training:
-                output_fts = dropout(output_fts, fc.dropout_rate, generator)
+                output_fts = dropout(output_fts, fc.dropout_rate, generator, self.dp_group)
         return layer_pts[-1], output_fts

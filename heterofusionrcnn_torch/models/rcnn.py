@@ -63,6 +63,7 @@ from heterofusionrcnn_torch.models.rpn import (
 from heterofusionrcnn_torch.ops.cropping import pc_crop_and_sample
 from heterofusionrcnn_torch.ops.image_crop import crop_and_resize
 from heterofusionrcnn_torch.ops.nms import oriented_nms_boxes_3d
+from heterofusionrcnn_torch.parallel.mesh import all_reduce_sum
 
 
 class RcnnModel(nn.Module):
@@ -97,6 +98,9 @@ class RcnnModel(nn.Module):
         self.cls_neg_iou_hi = cls_neg_iou_hi
         self.cls_pos_iou_lo = cls_pos_iou_lo
         self.reg_pos_iou_lo = reg_pos_iou_lo
+        # The data-parallel group of the dropout draws and `cls_accuracy`
+        # (`parallel.mesh.set_data_parallel_group`); None: one process.
+        self.dp_group = None
         self.register_buffer(
             "cluster_sizes",
             torch.tensor(cluster_sizes, dtype=torch.float32).reshape(-1, 3),
@@ -237,7 +241,7 @@ class RcnnModel(nn.Module):
         for i, fc in enumerate(layers):
             x = getattr(self, f"{prefix}{i}")(x)
             if self.training:
-                x = dropout(x, fc.dropout_rate, gens.get("dropout"))
+                x = dropout(x, fc.dropout_rate, gens.get("dropout"), self.dp_group)
         return x
 
     def _final_boxes(self, fields, flat_proposals, cls_softmax, non_empty, b):
@@ -308,6 +312,11 @@ class RcnnModel(nn.Module):
         bin_x_gt, res_x_gt = at_class(bin_x_gt), at_class(res_x_gt)
         bin_z_gt, res_z_gt = at_class(bin_z_gt), at_class(res_z_gt)
         hits = (cls_logits.argmax(-1) == cls_gt) & pos_neg_cls_mask
+        if self.dp_group is None:
+            accuracy = hits.sum() / pos_neg_cls_mask.sum().clamp(min=1)
+        else:  # the global batch's
+            n = all_reduce_sum(torch.stack([hits.sum(), pos_neg_cls_mask.sum()]), self.dp_group)
+            accuracy = n[0] / n[1].clamp(min=1)
         return {
             "cls_logits": cls_logits,
             "cls_gt_one_hot": one_hot(cls_gt, k + 1),
@@ -323,22 +332,24 @@ class RcnnModel(nn.Module):
                              at_class(fields["res_y"]),
                              at_class(fields["res_size"])),
             "mb_reg_gts": (res_x_gt, res_z_gt, res_theta_gt, res_y_gt, res_size_gt),
-            "cls_accuracy": hits.sum() / pos_neg_cls_mask.sum().clamp(min=1),
+            "cls_accuracy": accuracy,
         }
 
 
-def rcnn_loss(predictions: Dict[str, torch.Tensor], config: ModelConfig):
+def rcnn_loss(predictions: Dict[str, torch.Tensor], config: ModelConfig, group=None):
     """RCNN loss: the softmax classification loss over the proposals of
     the pos | neg mask, normalised by their count, plus the bins'
     cross-entropy and the residuals' smooth L1 over the regression mask,
-    normalised by its count (each 0 when its count is 0).
+    normalised by its count (each 0 when its count is 0). With a
+    data-parallel `group`, this rank's share: its sums over the global
+    batch's counts (`core/losses.py`).
 
     Returns:
       (loss_dict, total_loss).
     """
     lw = config.loss_config
     cls_mask = predictions["pos_neg_cls_mask"].float()
-    num_cls = cls_mask.sum()
+    num_cls = all_reduce_sum(cls_mask.sum(), group)
     zero = torch.zeros((), device=cls_mask.device)
     cls_loss = (weighted_softmax_ce(predictions["cls_logits"], predictions["cls_gt_one_hot"],
                                     weight=lw.cls_loss_weight) * cls_mask).sum()
@@ -346,7 +357,7 @@ def rcnn_loss(predictions: Dict[str, torch.Tensor], config: ModelConfig):
 
     bin_loss, reg_loss = bin_losses(predictions["mb_cls_preds"], predictions["mb_cls_gts"],
                                     predictions["mb_reg_preds"], predictions["mb_reg_gts"],
-                                    predictions["pos_reg_mask"].float(), lw)
+                                    predictions["pos_reg_mask"].float(), lw, group)
     total = cls_loss + bin_loss + reg_loss
     return {"rcnn_cls_loss": cls_loss, "rcnn_bin_cls_loss": bin_loss,
             "rcnn_reg_loss": reg_loss}, total

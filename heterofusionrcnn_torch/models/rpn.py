@@ -51,6 +51,7 @@ from heterofusionrcnn_torch.models.extractors.img_vgg_pyr import (
 from heterofusionrcnn_torch.models.extractors.layers import DenseBN, dropout
 from heterofusionrcnn_torch.models.extractors.pointcnn import PointCNN
 from heterofusionrcnn_torch.ops.nms import oriented_nms_boxes_3d
+from heterofusionrcnn_torch.parallel.mesh import all_reduce_sum, rank_and_size
 
 
 def bin_params(xz_search_range, xz_bin_len, theta_search_range, theta_bin_num):
@@ -180,6 +181,9 @@ class RpnModel(nn.Module):
         self.config = config
         self.num_classes = num_classes
         self.save_rpn_feature = save_rpn_feature
+        # The data-parallel group of the dropout draws and `seg_accuracy`
+        # (`parallel.mesh.set_data_parallel_group`); None: one process.
+        self.dp_group = None
         self.mode = mode
         self.register_buffer(
             "cluster_sizes",
@@ -270,7 +274,7 @@ class RpnModel(nn.Module):
         for i, fc in enumerate(cfg.layers_config.rpn_fc_layers):
             x = getattr(self, f"fc{i}")(x)
             if training:
-                x = dropout(x, fc.dropout_rate, gens.get("dropout"))
+                x = dropout(x, fc.dropout_rate, gens.get("dropout"), self.dp_group)
         out = self.fc_output(x).float().reshape(b, p, k, -1)
         fields = parse_bin_head(out, nbx, nbz, nbt)
 
@@ -287,7 +291,12 @@ class RpnModel(nn.Module):
                 predictions["proposal_iou2d"] = iou2d
         if self.mode in ("train", "val"):
             predictions.update(self._targets(fields, pc_pts_out, label_segs, label_regs))
-            predictions["seg_accuracy"] = (seg_preds == label_segs.long()).float().mean()
+            hits = (seg_preds == label_segs.long()).float()
+            if self.dp_group is None:
+                predictions["seg_accuracy"] = hits.mean()
+            else:  # the global batch's
+                predictions["seg_accuracy"] = (all_reduce_sum(hits.sum(), self.dp_group)
+                                               / (hits.numel() * rank_and_size(self.dp_group)[1]))
         if self.save_rpn_feature:
             predictions.update(
                 rpn_pts=pc_pts_out,
@@ -364,10 +373,12 @@ class RpnModel(nn.Module):
         }
 
 
-def rpn_loss(predictions: Dict[str, torch.Tensor], config: ModelConfig):
+def rpn_loss(predictions: Dict[str, torch.Tensor], config: ModelConfig, group=None):
     """RPN loss: the focal segmentation loss over all points, normalised by
     their count, plus the bins' cross-entropy and the residuals' smooth L1,
-    both normalised by the foreground count (0 without foreground).
+    both normalised by the foreground count (0 without foreground). With a
+    data-parallel `group`, this rank's share: its sums over the global
+    batch's counts (`core/losses.py`).
 
     Returns:
       (loss_dict, total_loss).
@@ -375,12 +386,12 @@ def rpn_loss(predictions: Dict[str, torch.Tensor], config: ModelConfig):
     lw = config.loss_config
     seg_softmax = predictions["seg_softmax"]
     # Ignore-label points (-1) have a zero one-hot row, hence no loss.
-    num_total = seg_softmax.shape[0] * seg_softmax.shape[1]
+    num_total = seg_softmax.shape[0] * seg_softmax.shape[1] * rank_and_size(group)[1]
     seg_loss = weighted_focal(seg_softmax, predictions["seg_gt_one_hot"],
                               weight=lw.seg_loss_weight).sum() / num_total
 
     cls_loss, reg_loss = bin_losses(predictions["cls_preds"], predictions["cls_gts"],
                                     predictions["reg_preds"], predictions["reg_gts"],
-                                    predictions["foreground_mask"].float(), lw)
+                                    predictions["foreground_mask"].float(), lw, group)
     total = seg_loss + cls_loss + reg_loss
     return {"rpn_seg_loss": seg_loss, "rpn_bin_cls_loss": cls_loss, "rpn_reg_loss": reg_loss}, total

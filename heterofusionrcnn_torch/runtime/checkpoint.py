@@ -8,7 +8,8 @@ one directory per step, `<directory>/<step>/checkpoint.pt`, holding
 whole train state also `"optimizer"` (moments, update count and the
 parameter EMA). A module's state dict is all that `run_inference` reads, so
 either kind serves it. The JAX package's orbax checkpoints are not read
-here.
+here. Under data parallelism every rank holds the same state: rank 0
+writes it, and the others wait at a barrier until the file is in place.
 """
 
 from __future__ import annotations
@@ -18,17 +19,23 @@ import shutil
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from heterofusionrcnn_torch.parallel.mesh import rank_and_size
 
 _FILE = "checkpoint.pt"
 
 
 class CheckpointManager:
-    """Per-step checkpoint directories, keeping the newest `max_to_keep`."""
+    """Per-step checkpoint directories, keeping the newest `max_to_keep`;
+    with a data-parallel `group`, `save` is a collective of its ranks."""
 
-    def __init__(self, directory: str, max_to_keep: int = 1000):
+    def __init__(self, directory: str, max_to_keep: int = 1000,
+                 group: Optional[dist.ProcessGroup] = None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.group = group
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -37,7 +44,14 @@ class CheckpointManager:
     def save(self, step: int, state: Any) -> None:
         """Save a train state (`runtime.train_state.TrainState`: module,
         optimizer, EMA), a module's state dict or a mapping of tensors at
-        `step`."""
+        `step`. With a group, rank 0 writes and every rank returns once the
+        checkpoint is in place."""
+        if rank_and_size(self.group)[0] == 0:
+            self._write(step, state)
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+    def _write(self, step: int, state: Any) -> None:
         optimizer = getattr(state, "optimizer", None)
         state = getattr(state, "model", state)
         sd = state.state_dict() if isinstance(state, nn.Module) else state

@@ -7,6 +7,13 @@ live objects: the module (its parameters and BatchNorm statistics), the
 optimizer (its moments and the parameter EMA), the step count, and the
 generators of the random draws ("dropout" and "path_drop", the flax rng
 streams) on the module's device. A step updates all of them in place.
+
+Under data parallelism the state also holds the process group, and its
+module the same group (`parallel/mesh.py`): each of the W ranks runs the
+step on its rows of the global batch, differentiates its share of the
+global loss (its sums over the global counts), and the ranks' gradients
+are summed in one all-reduce before clipping and the optimizer, so every
+rank applies the one-process step's update.
 """
 
 from __future__ import annotations
@@ -15,8 +22,10 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from heterofusionrcnn_torch.parallel.mesh import all_reduce_flat, set_data_parallel_group
 from heterofusionrcnn_torch.runtime.optimizer import Optimizer
 
 RPN_BATCH_KEYS = (
@@ -27,22 +36,27 @@ RPN_BATCH_KEYS = (
 
 @dataclass
 class TrainState:
-    """Module + optimizer (with its EMA) + step + generators."""
+    """Module + optimizer (with its EMA) + step + generators, and the
+    data-parallel group (None: one process)."""
 
     model: nn.Module
     optimizer: Optimizer
     generators: Dict[str, torch.Generator]
     step: int = 0
+    group: Optional[dist.ProcessGroup] = None
 
     @classmethod
-    def create(cls, model: nn.Module, optimizer: Optimizer, seed: int = 0) -> "TrainState":
+    def create(cls, model: nn.Module, optimizer: Optimizer, seed: int = 0,
+               group: Optional[dist.ProcessGroup] = None) -> "TrainState":
         """The state at step 0, its generators on the model's device seeded
         seed + 1 ("dropout") and seed + 2 ("path_drop"), as the JAX trainer
-        seeds those rng streams (the weights take `seed` itself)."""
+        seeds those rng streams (the weights take `seed` itself); `group`
+        is handed to the model's layers too."""
         device = next(model.parameters()).device
         generators = {name: torch.Generator(device=device).manual_seed(seed + i)
                       for i, name in ((1, "dropout"), (2, "path_drop"))}
-        return cls(model, optimizer, generators)
+        set_data_parallel_group(model, group)
+        return cls(model, optimizer, generators, group=group)
 
     @property
     def ema(self) -> Optional[Dict[str, torch.Tensor]]:
@@ -55,7 +69,12 @@ def train_step(state: TrainState, forward: Callable, loss_fn: Callable):
     (BatchNorm statistics move), `loss_fn` on its predictions, the
     gradients, clipping, the optimizer update and the EMA, `state.step` + 1.
     Returns the predictions and the metrics: the loss dict and
-    "total_loss", 0-d device tensors."""
+    "total_loss", 0-d device tensors.
+
+    With `state.group`, `loss_fn` gives this rank's share of the global
+    loss; the gradients and the loss shares are summed over the ranks in
+    one all-reduce of a flat buffer, so every rank gets the global
+    gradient and the global metrics."""
     model = state.model
     model.train()
     params: List[torch.Tensor] = state.optimizer.params
@@ -63,10 +82,15 @@ def train_step(state: TrainState, forward: Callable, loss_fn: Callable):
         preds = forward(model, state.generators)
         loss_dict, total = loss_fn(preds)
         grads = torch.autograd.grad(total, params)
+    names = list(loss_dict)
+    values = [loss_dict[k].detach() for k in names] + [total.detach()]
+    if state.group is not None:
+        summed = all_reduce_flat([*grads, *values], state.group)
+        grads, values = summed[:len(grads)], summed[len(grads):]
     state.optimizer.step(grads)
     state.step += 1
-    metrics = {k: v.detach() for k, v in loss_dict.items()}
-    metrics["total_loss"] = total.detach()
+    metrics = dict(zip(names, values))
+    metrics["total_loss"] = values[-1]
     return preds, metrics
 
 

@@ -1,16 +1,22 @@
-"""Training loop (PyTorch port of heterofusionrcnn_tpu/runtime/trainer.py,
-one process).
+"""Training loop (PyTorch port of heterofusionrcnn_tpu/runtime/trainer.py).
 
 The JAX trainer's external behaviour: the output tree
 <output_root>/<checkpoint_name>/{checkpoints,logs,predictions}, the config
 snapshot at start, resume from the latest checkpoint, the iteration budget
-divided by the world size (1 here), metrics every `summary_interval` steps
-into logs/metrics.jsonl (and TensorBoard where it imports), a checkpoint
-every `checkpoint_interval` steps and at the end, the host-RSS cap
+divided by the world size, metrics every `summary_interval` steps into
+logs/metrics.jsonl (and TensorBoard where it imports), a checkpoint every
+`checkpoint_interval` steps and at the end, the host-RSS cap
 (`HFR_MAX_HOST_RSS_MB`: checkpoint, then exit 75 for a relaunch) and
 `profile_steps` traced by `torch.profiler` into logs/profile. Runs on the
 card unless the caller passes `device="cpu"`; float32 matmuls and
 convolutions stay in full float32 (TF32 off, cuDNN's backward included).
+
+Data-parallel (a process group of W ranks, `parallel/`): every rank runs
+this loop on its own batches, each starting from rank 0's state
+(`replicate_state`, after a warm start or a resume); the learning rate is
+scaled by W and the budget divided by W, as in JAX; rank 0 alone writes
+the config snapshot, the metrics, the profile and the checkpoints, and a
+host-RSS cap passed on any rank makes every rank checkpoint and exit 75.
 """
 
 from __future__ import annotations
@@ -22,12 +28,14 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from heterofusionrcnn_torch.configs.config import PipelineConfig, save_config
 from heterofusionrcnn_torch.datasets.prefetch import BatchPrefetcher
 from heterofusionrcnn_torch.inference import exact_float32
 from heterofusionrcnn_torch.models.extractors.layers import init_weights
+from heterofusionrcnn_torch.parallel.mesh import any_rank, rank_and_size, replicate_state
 from heterofusionrcnn_torch.runtime.checkpoint import CheckpointManager, restore_matching
 from heterofusionrcnn_torch.runtime.optimizer import build_optimizer
 from heterofusionrcnn_torch.runtime.train_state import TrainState
@@ -137,29 +145,34 @@ def train(
     seed: int = 0,
     init_params_from: Optional[Dict[str, torch.Tensor]] = None,
     profile_steps: Optional[Tuple[int, int]] = None,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> TrainState:
     """Train `model` (weights from `seed`) on `next_batch()`'s host batches,
     loaded and copied to `device` one batch ahead in a worker thread.
 
     Args:
-      loss_fn: predictions -> (loss_dict, total).
+      loss_fn: predictions -> (loss_dict, total); with a `group`, this
+        rank's share of the global loss (`common.build_model(group=...)`).
       make_train_step: loss_fn -> step(state, batch) -> metrics; `batch`
         holds every entry of `next_batch()`'s dict, on `device`.
       init_params_from: a state dict for a warm start: tensors of the same
         name and shape replace the fresh weights (`restore_matching`).
       profile_steps: (start, stop) step range traced with torch.profiler
         into <logs>/profile (a Chrome trace).
+      group: the data-parallel process group (None: one process);
+        `next_batch()` then gives this rank's rows of each global batch.
     Returns:
       the final TrainState.
     """
     if device != "cpu" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not available")
     exact_float32()
+    rank, world = rank_and_size(group)
     tc = pipeline_cfg.train_config
     name = pipeline_cfg.model_config.checkpoint_name
     paths = setup_output_dirs(output_root, name)
-    save_config(pipeline_cfg, os.path.join(paths["base"], name + "_config.json"))
-    world = 1
+    if rank == 0:
+        save_config(pipeline_cfg, os.path.join(paths["base"], name + "_config.json"))
 
     init_weights(model, seed)
     if init_params_from is not None:
@@ -167,16 +180,20 @@ def train(
     model.to(device)
     optimizer = build_optimizer(model, tc.optimizer, world_size=world,
                                 grad_clip_norm=tc.grad_clip_norm)
-    state = TrainState.create(model, optimizer, seed)
+    state = TrainState.create(model, optimizer, seed, group)
 
-    ckpt = CheckpointManager(paths["checkpoints"], tc.max_checkpoints_to_keep)
+    ckpt = CheckpointManager(paths["checkpoints"], tc.max_checkpoints_to_keep, group)
     if not tc.overwrite_checkpoints and ckpt.latest_step() is not None:
         ckpt.restore(state)
-        print(f"Resumed from step {state.step}", flush=True)
+        if rank == 0:
+            print(f"Resumed from step {state.step}", flush=True)
+    replicate_state(state, group)
 
     train_step = make_train_step(loss_fn)
-    logger = MetricsLogger(paths["logs"], histograms=tc.summary_histograms,
-                           img_images=tc.summary_img_images, pc_images=tc.summary_pc_images)
+    logger = None
+    if rank == 0:
+        logger = MetricsLogger(paths["logs"], histograms=tc.summary_histograms,
+                               img_images=tc.summary_img_images, pc_images=tc.summary_pc_images)
     log_every = tc.summary_interval
     max_iters = tc.max_iterations // world
 
@@ -189,7 +206,7 @@ def train(
     profiler = None
     try:
         while step < max_iters:
-            if profile_steps is not None:
+            if profile_steps is not None and rank == 0:
                 if step == profile_steps[0] and profiler is None:
                     profiler = _start_profile(device)
                 elif step >= profile_steps[1] and profiler is not None:
@@ -200,28 +217,30 @@ def train(
             step = state.step
 
             if step % log_every == 0:
-                dt = time.time() - t_last
-                t_last = time.time()
-                names = sorted(metrics)
-                vals = torch.stack([metrics[k].float() for k in names]).cpu().numpy()
-                host_metrics = dict(zip(names, map(float, vals)))
-                host_metrics["steps_per_sec"] = log_every / max(dt, 1e-9)
-                host_metrics["device_mem_mb"] = device_memory_mb(device)
                 rss_mb = host_rss_mb()
-                host_metrics["host_rss_mb"] = rss_mb
-                logger.log(step, host_metrics)
-                logger.log_param_histograms(step, model)
-                logger.log_input_summaries(step, host_batch)
-                print(f"step {step}/{max_iters} "
-                      + " ".join(f"{k}={v:.4f}" for k, v in host_metrics.items()), flush=True)
-                # A restart point: past HFR_MAX_HOST_RSS_MB, checkpoint now
-                # and exit 75 (EX_TEMPFAIL) so that an outer loop relaunches
-                # and resumes at this step.
+                if logger is not None:
+                    dt = time.time() - t_last
+                    t_last = time.time()
+                    names = sorted(metrics)
+                    vals = torch.stack([metrics[k].float() for k in names]).cpu().numpy()
+                    host_metrics = dict(zip(names, map(float, vals)))
+                    host_metrics["steps_per_sec"] = log_every / max(dt, 1e-9)
+                    host_metrics["device_mem_mb"] = device_memory_mb(device)
+                    host_metrics["host_rss_mb"] = rss_mb
+                    logger.log(step, host_metrics)
+                    logger.log_param_histograms(step, model)
+                    logger.log_input_summaries(step, host_batch)
+                    print(f"step {step}/{max_iters} "
+                          + " ".join(f"{k}={v:.4f}" for k, v in host_metrics.items()),
+                          flush=True)
+                # A restart point: past HFR_MAX_HOST_RSS_MB (on any rank),
+                # checkpoint now and exit 75 (EX_TEMPFAIL) so that an outer
+                # loop relaunches and resumes at this step.
                 max_rss = float(os.environ.get("HFR_MAX_HOST_RSS_MB", "0") or 0)
-                if max_rss and rss_mb > max_rss:
+                if max_rss and any_rank(rss_mb > max_rss, group, device):
                     ckpt.save(step, state)
-                    print(f"host RSS {rss_mb:.0f} MB > {max_rss:.0f} MB limit: checkpointed at "
-                          f"step {step}, exiting 75 for relaunch", flush=True)
+                    print(f"host RSS {rss_mb:.0f} MB (rank {rank}), limit {max_rss:.0f} MB: "
+                          f"checkpointed at step {step}, exiting 75 for relaunch", flush=True)
                     raise SystemExit(75)
 
             if step % tc.checkpoint_interval == 0 or step == max_iters:
@@ -232,7 +251,8 @@ def train(
             ckpt.save(step, state)
     finally:
         prefetcher.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
         ckpt.close()
     return state
 

@@ -1,8 +1,8 @@
 """The port's training CLI (`heterofusionrcnn_torch.experiments.
 run_training`) and trainer on the CPU: `rpn_unittest` on the fixture
 frames, checkpoints, the metrics file, resume, the host-RSS cap, warm
-start, and the options that are not ported (or an RCNN config without its
-handoff directories) raising.
+start, and the options that cannot run (a world size that does not divide
+the global batch, an RCNN config without its handoff directories) raising.
 
 The JAX trainer (heterofusionrcnn_tpu/runtime/trainer.py) logs the train
 step's metrics (the three RPN losses, total_loss, seg_accuracy) plus
@@ -144,7 +144,8 @@ def test_warm_start_takes_matching_tensors(tmp_path):
 
 
 @pytest.mark.parametrize("argv,exc", [
-    (["--num_devices", "2"], NotImplementedError),
+    # rpn_unittest's global batch of 2 does not split over 3 ranks.
+    (["--num_devices", "3"], ValueError),
     # The RCNN trains now, but only from the RPN's handoff directories.
     (["--pipeline_config", "rcnn_unittest"], ValueError),
 ])
