@@ -225,6 +225,32 @@
    name and power limit; ranks that share one card say nothing of
    multi-card speed. (c) `run_training --num_devices 2` on the one card
    raises before any rank starts.
+14. bf16 training (`bf16_train_phase`, cell I). (a) Step 8's cell C from a
+   saved `rpn_multiclass` config with `compute_dtype` "bfloat16" and the
+   EMA on (`rpn_multiclass_bf16`), through `run_training` in process into
+   --out/chip_smoke_bf16_train: 6 steps and a resume to 8, each counted
+   and timed as in step 8 (KNN, its prep and FPS launched; no XConv of
+   either dtype, no NMS), losses finite, peak memory; every parameter,
+   buffer, Adam moment, EMA entry and checkpoint tensor float32; one
+   recorded step's KNN and FPS calls bit-exact, timed and bounded (rows
+   knn_bf16_train, knn_prep_bf16_train, fps_bf16_train); one profiled step
+   (busy share of the median step); the same config's step in float32 and
+   in bf16 in turns (float32, bf16, bf16, float32; BF16_TURN_STEPS each);
+   8 steps on one repeated batch lower the loss. (b) `val_check` on the
+   trained bf16 RPN: two val forwards around one more step, the bf16 XConv
+   and split-epilogue calls within the bf16 gate, NMS bit-exact, no
+   float32 XConv launch, each XConv refolding its bf16 Wc operand once a
+   step. (c) The handoff from (a)'s checkpoint (`handoff_phase`, the bf16
+   XConv calls held), then `rcnn_multiclass` in bf16 (batch 1, 64 RoIs,
+   warm-started), BF16_RCNN_STEPS steps counted and timed, a positive
+   RoI, state float32, rows knn_bf16_rcnn_train and fps_bf16_rcnn_train.
+   (d) One bf16 step at `rpn_unittest` and at `rcnn_unittest` width on
+   the card against the CPU (`step_agrees(bf16=True)`): losses within
+   2^-7, gradients, parameters and statistics at bf16 resolution
+   (`bf16_params_agree`, tests/test_torch_parallel.py's bf16 bounds), the
+   measured spread printed. (e) Two bf16 `rcnn_unittest` steps on two
+   gloo ranks sharing the card against this process's (step 13's `dp_run`,
+   held by `bf16_dp_steps_agree`).
 
 Prints a {"kernels": [...]} JSON line, then the result as its last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -239,6 +265,7 @@ import contextlib
 import csv
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -471,6 +498,33 @@ def check_epilogue(partial, sc, bc, out_dtype=None):
         raise AssertionError(f"xconv epilogue differs by {float(err.max())} at "
                              f"{tuple(partial.shape)}")
     return float(err.max())
+
+
+def xconv_call_err(args, bf16=False):
+    """A recorded fused XConv call against its plain version: `check_xconv`
+    or, for a bf16 call, within the bf16 gate (`bf16_compare`); the max
+    |kernel - plain|."""
+    if not bf16:
+        return check_xconv(*args)
+    import torch
+
+    from heterofusionrcnn_torch.ops import xconv
+
+    if args[5] != torch.bfloat16:
+        raise AssertionError(f"a {args[5]} XConv call on the bf16 path")
+    return bf16_compare(xconv.fused_xconv(*args), xconv.fused_xconv_plain(*args),
+                        "xconv_bf16")[0]
+
+
+def epilogue_call_err(args, bf16=False):
+    """A recorded split-epilogue call against its plain version, as
+    `xconv_call_err` holds the XConv."""
+    if not bf16:
+        return check_epilogue(*args)
+    from heterofusionrcnn_torch.ops import xconv
+
+    return bf16_compare(xconv.xconv_split_epilogue(*args),
+                        xconv.xconv_split_epilogue_plain(*args), "xconv_epilogue_bf16")[0]
 
 
 def nms_iou_count(boxes, scores, thresh, keep, valid):
@@ -1348,11 +1402,13 @@ def val_forward(model, batch, kernels):
     return out, calls, {k: kern.launches for k, kern in kernels.items()}
 
 
-def val_check(state, cfg, batch, kernels):
+def val_check(state, cfg, batch, kernels, bf16=False):
     """The trained weights in val mode, twice around one more train step:
     each forward's NMS calls bit-exact and fused XConv calls within the
-    gate against their plain versions, every kept weight fold equal to a
-    fresh fold, and the step refolding every XConv once."""
+    gate against their plain versions (`bf16`: the bf16 XConv, within the
+    bf16 gate, and no float32 XConv launch), every kept weight fold equal
+    to a fresh fold (with its bf16 Wc operand), and the step refolding
+    every XConv once."""
     import torch
 
     from heterofusionrcnn_torch.models.extractors.pointcnn import XConv
@@ -1361,6 +1417,7 @@ def val_check(state, cfg, batch, kernels):
 
     model = state.model
     xconvs = {n: m for n, m in model.named_modules() if isinstance(m, XConv)}
+    xk = "xconv_bf16" if bf16 else "xconv"
     result = {}
     for rnd in range(2):
         if rnd:
@@ -1370,13 +1427,16 @@ def val_check(state, cfg, batch, kernels):
         if rnd and any(m.weight_folds != folds[n] + 1 for n, m in xconvs.items()):
             raise AssertionError("a train step did not refold every XConv exactly once")
         check_fresh_folds(model)
-        if launches["xconv"] != len(xconvs) or launches["nms"] != 1:
+        if bf16 and any(m.kernel_weights().wc_operand_bf16 is None for m in xconvs.values()):
+            raise AssertionError("an XConv fold without its bf16 Wc operand")
+        if (launches[xk] != len(xconvs) or launches["nms"] != 1
+                or (bf16 and launches["xconv"])):
             raise AssertionError(f"val forward launches {launches}")
-        if len(calls["fused_xconv"]) != launches["xconv"]:
+        if len(calls["fused_xconv"]) != launches[xk]:
             raise AssertionError("recorded XConv calls do not match the launches")
-        err = max(check_xconv(*a) for a, _ in calls["fused_xconv"])
+        err = max(xconv_call_err(a, bf16) for a, _ in calls["fused_xconv"])
         for a, _ in calls["xconv_split_epilogue"]:
-            err = max(err, check_epilogue(*a))
+            err = max(err, epilogue_call_err(a, bf16))
         for a, kw in calls["oriented_nms"]:
             check_index_exact("nms", a, kw)
         for key in ("proposals", "proposal_iou3d", "seg_softmax"):
@@ -1415,11 +1475,13 @@ def params_agree(got, want, grads_got, grads_want, lr, grads_close=None):
     return bad, noise
 
 
-def step_agrees(cfg, batch, dataset, make_step, seed, grads_close=None):
+def step_agrees(cfg, batch, dataset, make_step, seed, grads_close=None, bf16=False):
     """One train step (`make_step`) of `cfg`'s model on the card and on the
     CPU (plain versions) from the same weights and host batch `batch`:
     losses within LOSS_TOL, the step's gradients, updated parameters and
-    statistics as `params_agree` holds them."""
+    statistics as `params_agree` holds them (`bf16`: a bf16 model, at bf16
+    resolution: losses within BF16_LOSS_RTOL, the rest as
+    `bf16_params_agree` holds it)."""
     import copy
 
     from heterofusionrcnn_torch.experiments import common
@@ -1438,15 +1500,22 @@ def step_agrees(cfg, batch, dataset, make_step, seed, grads_close=None):
         # The step's own clipped gradient: Adam's first moment after one
         # step from zero is (1 - b1) times it. A second backward on the card
         # need not repeat the step's rounding (its scatter-adds use atomics).
-        grads = {n: mu / (1 - ADAM_B1)
-                 for n, mu in state.optimizer.state_dict()["state"]["mu"].items()}
-        results.append(({k: float(v) for k, v in metrics.items()}, m.state_dict(), grads))
-    (want_l, want_sd, want_g), (got_l, got_sd, got_g) = results
+        opt_sd = state.optimizer.state_dict()["state"]
+        grads = {n: mu / (1 - ADAM_B1) for n, mu in opt_sd["mu"].items()}
+        results.append(({k: float(v) for k, v in metrics.items()}, m.state_dict(), grads,
+                        opt_sd["nu"]))
+    (want_l, want_sd, want_g, want_nu), (got_l, got_sd, got_g, _) = results
+    lr = cfg.train_config.optimizer.initial_learning_rate
+    total = sum(p.numel() for p in model.parameters())
+    if bf16:
+        losses_ok = all(abs(got_l[k] - want_l[k]) <= BF16_LOSS_RTOL * abs(want_l[k])
+                        for k in want_l)
+        bad, capped, worst = bf16_params_agree(got_sd, want_sd, got_g, want_g, want_nu, 1, lr)
+        return losses_ok and not bad, dict(cpu=want_l, cuda=got_l, outside=bad, capped=capped,
+                                           capped_share=capped / total, worst=worst)
     losses_ok = all(abs(got_l[k] - want_l[k]) <= LOSS_TOL["atol"] + LOSS_TOL["rtol"] * abs(want_l[k])
                     for k in want_l)
-    bad, noise = params_agree(got_sd, want_sd, got_g, want_g,
-                              cfg.train_config.optimizer.initial_learning_rate, grads_close)
-    total = sum(p.numel() for p in model.parameters())
+    bad, noise = params_agree(got_sd, want_sd, got_g, want_g, lr, grads_close)
     return losses_ok and not bad, dict(cpu=want_l, cuda=got_l, outside=bad,
                                        widened_share=sum(noise.values()) / total,
                                        widened_elements=noise)
@@ -1488,7 +1557,6 @@ def training_phase(kernels, out_root):
     """The training CLI at full width (see TRAIN_STEPS), its checks, the
     kernel rows of one recorded train step, the val-mode check, the small-
     width card/CPU step, the loss curve and one profiled step."""
-    import numpy as np
     import torch
 
     from heterofusionrcnn_torch.configs.config import save_config
@@ -1518,12 +1586,7 @@ def training_phase(kernels, out_root):
     ckpts = CheckpointManager(os.path.join(root, "rpn_multiclass", "checkpoints")).all_steps()
     if ckpts != [3, 6, 8]:
         raise AssertionError(f"checkpoints {ckpts}")
-    for s in monitor.steps:
-        if not all(np.isfinite(v) for v in s["losses"].values()):
-            raise AssertionError(f"non-finite losses at step {s['start'] + 1}: {s['losses']}")
-        launched = s["launches"]
-        if not all(launched[k] for k in TRAIN_KERNELS) or launched["xconv"] or launched["nms"]:
-            raise AssertionError(f"train step {s['start'] + 1} launches {launched}")
+    check_train_steps(monitor.steps, TRAIN_KERNELS, ("xconv", "nms"), "train")
     recorded = monitor.steps[TRAIN_RECORDED_STEP]["launches"]
     calls = monitor.calls
     if expected_launches(calls, TRAIN_KERNELS) != {k: recorded[k] for k in TRAIN_KERNELS}:
@@ -1577,13 +1640,15 @@ RCNN_STEPS, RCNN_RESUMED_TO = 6, 8
 RCNN_KERNELS = ("knn", "fps")  # launched by every RCNN train step (sets below 4096: brute arm)
 
 
-def handoff_phase(kernels, rpn_root):
+def handoff_phase(kernels, rpn_root, pipeline_config="rpn_multiclass", bf16=False):
     """`run_evaluation --save_rpn_feature --for_rcnn_train` in process on
-    the fixture train split from the latest checkpoint under `rpn_root`,
-    counted, with the first frame's kernel calls recorded: every labelled
-    frame's three files, features of the RCNN's width, finite; the first
-    frame's NMS calls bit-exact and fused XConv and split-epilogue calls
-    within the gate. Returns the report and the three directories."""
+    the fixture train split from the latest checkpoint under `rpn_root` of
+    `pipeline_config` (a preset or a saved config), counted, with the first
+    frame's kernel calls recorded: every labelled frame's three files,
+    features of the RCNN's width, finite; the first frame's NMS calls
+    bit-exact and fused XConv and split-epilogue calls within the gate
+    (`bf16`: the bf16 XConv's). Returns the report and the three
+    directories."""
     import numpy as np
     import torch
 
@@ -1609,14 +1674,15 @@ def handoff_phase(kernels, rpn_root):
     t0 = time.perf_counter()
     with patched(evaluator.RpnEvaluator, "_apply", recorded_apply):
         summary, = run_evaluation.main([
-            "--pipeline_config", "rpn_multiclass", "--dataset_dir", KITTI_DIR,
+            "--pipeline_config", pipeline_config, "--dataset_dir", KITTI_DIR,
             "--output_root", rpn_root, "--data_split", "train", "--save_rpn_feature",
             "--for_rcnn_train"])
     torch.cuda.synchronize()
     report = dict(s=time.perf_counter() - t0, step=summary["global_step"],
                   launches={k: kern.launches for k, kern in kernels.items()},
                   recall_50=summary["recall_50"], avg_iou3d=summary["avg_iou3d"])
-    pred = os.path.join(rpn_root, "rpn_multiclass", "predictions")
+    name = common.resolve_config(pipeline_config, KITTI_DIR).model_config.checkpoint_name
+    pred = os.path.join(rpn_root, name, "predictions")
     dirs = [os.path.join(pred, d, "train", str(summary["global_step"]))
             for d in ("proposals_and_scores", "proposals_iou", "rpn_feature")]
     cfg = common.resolve_config("rcnn_multiclass", KITTI_DIR)
@@ -1633,12 +1699,13 @@ def handoff_phase(kernels, rpn_root):
         if not all(np.isfinite(a).all() for a in (props, ious, feats)):
             raise AssertionError(f"handoff of {name}: non-finite values")
     frames = len(labelled)
-    per_frame = {k: report["launches"][k] / frames for k in ("xconv", "nms", "knn", "fps")}
-    if not all(per_frame.values()):
+    xk = "xconv_bf16" if bf16 else "xconv"
+    per_frame = {k: report["launches"][k] / frames for k in (xk, "nms", "knn", "fps")}
+    if not all(per_frame.values()) or (bf16 and report["launches"]["xconv"]):
         raise AssertionError(f"the RPN evaluation did not launch every kernel: {report['launches']}")
-    err = max(check_xconv(*a) for a, _ in first["fused_xconv"])
+    err = max(xconv_call_err(a, bf16) for a, _ in first["fused_xconv"])
     for a, _ in first["xconv_split_epilogue"]:
-        err = max(err, check_epilogue(*a))
+        err = max(err, epilogue_call_err(a, bf16))
     for a, kw in first["oriented_nms"]:
         check_index_exact("nms", a, kw)
     report.update(frames=frames, feature_width=width, xconv_max_abs_err=err,
@@ -1731,11 +1798,7 @@ def two_stage_phase(kernels, out_root):
         if sorted(s["losses"]) != ["rcnn_bin_cls_loss", "rcnn_cls_loss", "rcnn_reg_loss",
                                    "total_loss"]:
             raise AssertionError(f"RCNN step metrics {sorted(s['losses'])}")
-        if not all(np.isfinite(v) for v in s["losses"].values()):
-            raise AssertionError(f"non-finite RCNN losses at step {s['start'] + 1}: {s['losses']}")
-        launched = s["launches"]
-        if not all(launched[k] for k in RCNN_KERNELS) or launched["xconv"] or launched["nms"]:
-            raise AssertionError(f"RCNN train step {s['start'] + 1} launches {launched}")
+    check_train_steps(monitor.steps, RCNN_KERNELS, ("xconv", "nms"), "RCNN")
     positive = sum(s["losses"]["rcnn_reg_loss"] > 0 for s in monitor.steps)
     if not positive:  # else no step trained the bin and residual heads
         raise AssertionError("no RCNN train step held a positive RoI")
@@ -2825,11 +2888,13 @@ def dp_steps_agree(got, want, lr, grads_close=None):
     return bad, widened
 
 
-def dp_run(spec, world, backend, root, label, grads_close=None, kernels=DP_KERNELS):
+def dp_run(spec, world, backend, root, label, grads_close=None, kernels=DP_KERNELS,
+           agree=None):
     """`spec`'s steps in this process (no group) and on `world` ranks of
     `backend` (each step from this process's state before it): the checks
-    of step 13 (module docstring), each rank's steps launching `kernels`;
-    returns the report."""
+    of step 13 (module docstring; `agree(got, want, lr)` in place of
+    `dp_steps_agree`), each rank's steps launching `kernels`; returns the
+    report."""
     import torch
 
     from heterofusionrcnn_torch.parallel.distributed import spawn_ranks
@@ -2855,7 +2920,8 @@ def dp_run(spec, world, backend, root, label, grads_close=None, kernels=DP_KERNE
     report = dict(label=label, world=world, backend=backend, wall_s=wall_s,
                   one_process_metrics=[st["metrics"] for st in want["steps"]], ranks=[])
     for res in ranks:
-        bad, widened = dp_steps_agree(res, want, lr, grads_close)
+        bad, widened = (agree(res, want, lr) if agree
+                        else dp_steps_agree(res, want, lr, grads_close))
         if bad:
             raise AssertionError(f"{label} rank {res['rank']} differs from one process: {bad[:8]}")
         for i, launched in enumerate(res["launches"]):
@@ -2952,6 +3018,418 @@ def dp_phase(out_root):
         raise AssertionError("run_training started ranks before its guard")
     print(f"run_training --num_devices 2 on one card: {report['cli_guard']}", flush=True)
     return report
+
+
+# Step 14, bf16 training (cell I): cell C and cell D with `compute_dtype`
+# "bfloat16" through the CLIs, the val forwards after the bf16 steps, one
+# bf16 step on the card against the CPU at each stage's unittest width, and
+# two gloo ranks in bf16.
+BF16_TURN_STEPS = 3            # steps a turn when float32 and bf16 steps are timed in turns
+BF16_RCNN_STEPS = 6
+# Launched by no bf16 train step: training runs the XConv's layers one by
+# one (the fused kernels are inference-only, as in JAX), and no NMS.
+BF16_TRAIN_OFF = ("xconv", "xconv_epilogue", "xconv_bf16", "xconv_epilogue_bf16", "nms")
+# bf16 resolution, tests/test_torch_parallel.py's bf16 tolerances (two
+# evaluations of one bf16 step that sum in other orders): losses within
+# 2^-7 relative; a step gradient within BF16_GRAD_SHARE of the tensor's
+# largest |element| and BF16_GRAD_L2 in relative L2 norm, per part (the
+# image branch, everything else), the biases that a training BatchNorm
+# follows (0 in exact arithmetic) aside; a parameter or EMA entry within
+# PARAM_TOL plus its Adam update's sensitivity 2 x lr |dg| / sqrt(v_hat),
+# at most 2 x lr (the elements at that cap counted); a BatchNorm statistic
+# within BF16_STATS_SHARE of its largest |element| and BF16_STATS_ATOL.
+BF16_LOSS_RTOL = 2.0 ** -7
+BF16_GRAD_SHARE = (0.35, 0.25)
+BF16_GRAD_L2 = (0.2, 0.15)
+BF16_STATS_SHARE = 1e-2
+BF16_STATS_ATOL = 1e-6
+BN_FOLLOWED_BIAS = re.compile(r"\.(Conv_0|ConvTranspose_0)\.bias$|\.X_1\.BatchNorm_0\.bias$")
+
+
+def bf16_params_agree(got, want, grads_got, grads_want, nu, count, lr):
+    """State dict `got` against `want` after a bf16 step, at bf16 resolution
+    (BF16_GRAD_SHARE and the rest above): `nu` is `want`'s Adam second
+    moment after `count` steps. Returns the names outside, the count of
+    elements at the 2 x lr cap and the worst gradient (share, L2) per part."""
+    import torch
+
+    from heterofusionrcnn_torch.runtime.optimizer import ADAM_B2, ADAM_EPS
+
+    bad, capped, worst = [], 0, [[0.0, 0.0], [0.0, 0.0]]
+    noise = {}
+    for name, gw in grads_want.items():
+        gg = grads_got[name].cpu()
+        if gg.dtype != torch.float32:
+            bad.append(f"gradient of {name} is {gg.dtype}")
+        if BN_FOLLOWED_BIAS.search(name):
+            noise[name] = 2 * lr
+            continue
+        part = 0 if name.startswith("img_vgg_pyr.") else 1
+        err = (gg - gw).abs()
+        share = float(err.max()) / max(float(gw.abs().max()), 1e-30)
+        l2 = float(err.norm()) / max(float(gw.norm()), 1e-30)
+        worst[part] = [max(worst[part][0], share), max(worst[part][1], l2)]
+        if share > BF16_GRAD_SHARE[part] or l2 > BF16_GRAD_L2[part]:
+            bad.append(f"gradient of {name} ({share:.3g} of its largest, L2 {l2:.3g})")
+        v_hat = nu[name].cpu() / (1 - ADAM_B2 ** count)
+        noise[name] = torch.clamp(2 * lr * err / (torch.sqrt(v_hat) + ADAM_EPS), max=2 * lr)
+        capped += int((noise[name] >= 2 * lr).sum())
+    for name, w in want.items():
+        g = got[name].cpu()
+        if not g.is_floating_point():
+            continue
+        if g.dtype != torch.float32:
+            bad.append(f"{name} is {g.dtype}")
+            continue
+        if name in noise:
+            bound = PARAM_TOL["atol"] + PARAM_TOL["rtol"] * w.abs() + noise[name]
+        else:  # a BatchNorm statistic
+            bound = BF16_STATS_SHARE * float(w.abs().max()) + BF16_STATS_ATOL
+        if not bool(((g - w).abs() <= bound).all()):
+            bad.append(name)
+    return bad, capped, worst
+
+
+def bf16_dp_steps_agree(got, want, lr):
+    """`dp_steps_agree` at bf16 resolution: per step the metrics within
+    BF16_LOSS_RTOL, `bf16_params_agree` on the module state and on the EMA
+    (the gradients from Adam's first moment). Returns the failures and the
+    capped counts."""
+    from heterofusionrcnn_torch.runtime.optimizer import ADAM_B1
+
+    bad, capped = [], []
+    for i, (g, w) in enumerate(zip(got["steps"], want["steps"])):
+        for key, val in w["metrics"].items():
+            if abs(g["metrics"][key] - val) > BF16_LOSS_RTOL * abs(val):
+                bad.append(f"step {i + 1} {key}")
+        before = want["steps"][i - 1]["optimizer"]["state"]["mu"] if i else None
+
+        def grads(st):
+            return {n: (m - (ADAM_B1 * before[n] if i else 0.0)) / (1 - ADAM_B1)
+                    for n, m in st["optimizer"]["state"]["mu"].items()}
+
+        gg, gw = grads(g), grads(w)
+        nu = w["optimizer"]["state"]["nu"]
+        step_bad, n_cap, _ = bf16_params_agree(g["state_dict"], w["state_dict"], gg, gw, nu,
+                                               i + 1, lr)
+        ema_bad, _, _ = bf16_params_agree(g["optimizer"]["ema"], w["optimizer"]["ema"], gg, gw,
+                                          nu, i + 1, lr)
+        bad += [f"step {i + 1} {n}" for n in step_bad] + [f"step {i + 1} EMA {n}" for n in ema_bad]
+        capped.append(n_cap)
+    return bad, capped
+
+
+def float32_state(state, ckpt_dir):
+    """The names of every floating tensor of a train state (parameters,
+    buffers, Adam moments, the EMA) and of the latest checkpoint under
+    `ckpt_dir` that is not float32; raises for a checkpoint without tensors."""
+    import torch
+
+    from heterofusionrcnn_torch.runtime.checkpoint import CheckpointManager
+
+    def floats(tree, prefix):
+        if isinstance(tree, torch.Tensor):
+            return [(prefix, tree)] if tree.is_floating_point() else []
+        if isinstance(tree, dict):
+            return [x for k, v in tree.items() for x in floats(v, f"{prefix}/{k}")]
+        if isinstance(tree, (list, tuple)):
+            return [x for i, v in enumerate(tree) for x in floats(v, f"{prefix}/{i}")]
+        return []
+
+    saved = floats(CheckpointManager(ckpt_dir).restore_raw(), "checkpoint")
+    if not saved:
+        raise AssertionError(f"the checkpoint under {ckpt_dir} holds no tensors")
+    every = (floats(state.model.state_dict(), "module")
+             + floats(state.optimizer.state_dict(), "optimizer") + saved)
+    return [name for name, t in every if t.dtype != torch.float32]
+
+
+def bf16_config(preset, name, root):
+    """`preset` with `compute_dtype` "bfloat16", named `name`, checkpoints
+    every TRAIN_INTERVAL steps, saved as <root>/<name>.json; returns the
+    config and the path."""
+    from heterofusionrcnn_torch.configs.config import save_config
+    from heterofusionrcnn_torch.experiments import common
+
+    cfg = common.resolve_config(preset, KITTI_DIR)
+    cfg.model_config.compute_dtype = "bfloat16"
+    cfg.model_config.checkpoint_name = name
+    cfg.train_config.checkpoint_interval = TRAIN_INTERVAL
+    cfg.train_config.optimizer.use_moving_average = True  # the EMA is held float32 too
+    path = os.path.join(root, name + ".json")
+    save_config(cfg, path)
+    return cfg, path
+
+
+def check_train_steps(steps, on, off, label):
+    """Every monitored step: finite losses, each kernel of `on` launched,
+    none of `off`."""
+    import numpy as np
+
+    for s in steps:
+        if not all(np.isfinite(v) for v in s["losses"].values()):
+            raise AssertionError(f"{label}: non-finite losses at step {s['start'] + 1}: "
+                                 f"{s['losses']}")
+        launched = s["launches"]
+        if not all(launched[k] for k in on) or any(launched[k] for k in off):
+            raise AssertionError(f"{label} step {s['start'] + 1} launches {launched}")
+
+
+def timed_steps(step, state, batch, n):
+    """ms of each of n steps, host clock between two synchronisations."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def bf16_rpn_train(kernels, root, report):
+    """Step 14 (a) and (b): cell C in bf16 through the CLI, its checks, the
+    rows of one recorded step, the val forwards, a profiled step, float32
+    and bf16 steps in turns and the loss curve. Returns the rows."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from heterofusionrcnn_torch.experiments import common, run_training
+    from heterofusionrcnn_torch.models.extractors.layers import init_weights
+    from heterofusionrcnn_torch.models.rpn import rpn_loss
+    from heterofusionrcnn_torch.runtime.checkpoint import CheckpointManager
+    from heterofusionrcnn_torch.runtime.optimizer import build_optimizer
+    from heterofusionrcnn_torch.runtime.train_state import TrainState, make_rpn_train_step
+
+    cfg, cfg_path = bf16_config("rpn_multiclass", "rpn_multiclass_bf16", root)
+    argv = ["--pipeline_config", cfg_path, "--data_split", "train", "--output_root", root,
+            "--seed", str(SEED)]
+    monitor = StepMonitor(kernels, make_rpn_train_step)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad(), patched(run_training, "make_rpn_train_step", monitor.factory):
+        run_training.main(argv + ["--max_iterations", str(TRAIN_STEPS)])
+        state = run_training.main(argv + ["--max_iterations", str(TRAIN_RESUMED_TO)])
+    rep = dict(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, steps=monitor.steps)
+    starts = [s["start"] for s in monitor.steps]
+    if starts != list(range(TRAIN_RESUMED_TO)) or state.step != TRAIN_RESUMED_TO:
+        raise AssertionError(f"bf16 steps started at {starts}, ended at {state.step}")
+    if state.model.dtype != torch.bfloat16:
+        raise AssertionError("the bf16 config trained another dtype")
+    ckpt_dir = os.path.join(root, "rpn_multiclass_bf16", "checkpoints")
+    if CheckpointManager(ckpt_dir).all_steps() != [3, 6, 8]:
+        raise AssertionError(f"bf16 checkpoints {CheckpointManager(ckpt_dir).all_steps()}")
+    check_train_steps(monitor.steps, TRAIN_KERNELS, BF16_TRAIN_OFF, "bf16 RPN")
+    not32 = float32_state(state, ckpt_dir)
+    if not32:
+        raise AssertionError(f"bf16 training left tensors off float32: {not32[:8]}")
+    recorded = monitor.steps[TRAIN_RECORDED_STEP]["launches"]
+    calls = monitor.calls
+    if expected_launches(calls, TRAIN_KERNELS) != {k: recorded[k] for k in TRAIN_KERNELS}:
+        raise AssertionError(f"recorded bf16 step calls do not match its launches {recorded}")
+    for (_, xyz, _), _ in calls["knn_point"]:
+        if xyz.dtype != torch.float32:
+            raise AssertionError(f"a {xyz.dtype} KNN call on the bf16 path")
+    step_ms = [s["ms"] for s in monitor.steps]
+    rep["median_ms_after_first"] = float(np.median(step_ms[1:]))
+    print(f"card: {card_line()}; bf16 RPN train steps ms (batch 2): "
+          + " ".join(f"{t:.2f}" for t in step_ms) + f"; peak device memory "
+          f"{rep['peak_mem_gb']:.2f} GB; losses of the last: {monitor.steps[-1]['losses']}",
+          flush=True)
+    rows = {}
+    with torch.no_grad():
+        knn_rows(rows, calls, REPS, "_bf16_train")
+        fps_row(rows, calls, REPS, "_bf16_train", sweeps=False)
+    for name in TRAIN_KERNELS:
+        rows[name + "_bf16_train"]["launches"] = recorded[name]
+    del calls, monitor.calls
+
+    batch, dataset = train_batch(cfg, "cuda")
+    rep["val"] = val_check(state, cfg, batch, kernels, bf16=True)
+    print(f"bf16 val forwards after the steps: {rep['val']}", flush=True)
+    step = make_rpn_train_step(lambda p: rpn_loss(p, cfg.model_config))
+    rep["profile_step"] = profile_forward(lambda: step(state, batch), (), top=25)
+    rep["device_busy_share"] = rep["profile_step"]["device_busy_ms"] / rep["median_ms_after_first"]
+    print(f"bf16 RPN step profile: {rep['profile_step']['device_busy_ms']:.2f} ms of device "
+          f"time, busy share {rep['device_busy_share']:.3f} of the median step", flush=True)
+    del state
+    torch.cuda.empty_cache()
+
+    # Cell C's step in float32 and in bf16 in turns (float32, bf16, bf16,
+    # float32), the same weights, batch and config but the dtype.
+    states = {}
+    for dtype in ("float32", "bfloat16"):
+        c = copy.deepcopy(cfg)
+        c.model_config.compute_dtype = dtype
+        model, loss_fn = common.build_model(c, dataset, "train")
+        model = init_weights(model, SEED).cuda()
+        opt = build_optimizer(model, c.train_config.optimizer, 1, c.train_config.grad_clip_norm)
+        states[dtype] = (make_rpn_train_step(loss_fn), TrainState.create(model, opt, SEED))
+    turns = []
+    with torch.enable_grad():
+        for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+            step, st = states[dtype]
+            turns.append((dtype, timed_steps(step, st, batch, BF16_TURN_STEPS)))
+    rep["turns"] = turns
+    med = {d: float(np.median([t for dd, ts in turns for t in ts[1:] if dd == d]))
+           for d in ("float32", "bfloat16")}
+    rep["turn_median_ms"] = med
+    print("cell C's step in turns (float32, bf16, bf16, float32), ms: "
+          + "; ".join(f"{d} " + " ".join(f"{t:.2f}" for t in ts) for d, ts in turns)
+          + f"; median after each turn's first: float32 {med['float32']:.2f}, bf16 "
+          f"{med['bfloat16']:.2f}", flush=True)
+    del states
+    torch.cuda.empty_cache()
+
+    curve = loss_curve(copy.deepcopy(cfg), batch, dataset, make_rpn_train_step)
+    rep["loss_curve"] = curve
+    print("bf16 loss curve (one repeated batch): " + " ".join(f"{v:.4f}" for v in curve),
+          flush=True)
+    if not curve[-1] < curve[0]:
+        raise AssertionError(f"{CURVE_STEPS} bf16 steps on one batch did not lower the loss: "
+                             f"{curve}")
+    del batch
+    report["rpn"] = rep
+    return rows
+
+
+def bf16_rcnn_train(kernels, root, report):
+    """Step 14 (c): the handoff from (a)'s bf16 RPN, then `rcnn_multiclass`
+    in bf16 through the CLI, counted and timed, the rows of one recorded
+    step. Returns the rows."""
+    import numpy as np
+    import torch
+
+    from heterofusionrcnn_torch.experiments import common, run_training
+
+    rpn_path = os.path.join(root, "rpn_multiclass_bf16.json")
+    report["handoff"], dirs = handoff_phase(kernels, root, rpn_path, bf16=True)
+    cfg, cfg_path = bf16_config("rcnn_multiclass", "rcnn_multiclass_bf16", root)
+    argv = ["--pipeline_config", cfg_path, "--data_split", "train", "--output_root", root,
+            "--seed", str(SEED), "--max_iterations", str(BF16_RCNN_STEPS), "--warm_start_from",
+            os.path.join(root, "rpn_multiclass_bf16", "checkpoints"), "--proposal_dir", dirs[0],
+            "--proposal_iou_dir", dirs[1], "--rpn_feature_dir", dirs[2]]
+    monitor = StepMonitor(kernels, common.make_rcnn_train_step)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad(), patched(run_training, "make_rcnn_train_step", monitor.factory):
+        state = run_training.main(argv)
+    rep = dict(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, steps=monitor.steps)
+    if state.step != BF16_RCNN_STEPS or state.model.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 RCNN ended at step {state.step}, dtype {state.model.dtype}")
+    check_train_steps(monitor.steps, RCNN_KERNELS, BF16_TRAIN_OFF, "bf16 RCNN")
+    not32 = float32_state(state, os.path.join(root, "rcnn_multiclass_bf16", "checkpoints"))
+    if not32:
+        raise AssertionError(f"bf16 RCNN training left tensors off float32: {not32[:8]}")
+    positive = sum(s["losses"]["rcnn_reg_loss"] > 0 for s in monitor.steps)
+    if not positive:
+        raise AssertionError("no bf16 RCNN step held a positive RoI")
+    recorded = monitor.steps[TRAIN_RECORDED_STEP]["launches"]
+    calls = monitor.calls
+    if expected_launches(calls, ("knn", "knn_prep", "fps")) != {
+            k: recorded[k] for k in ("knn", "knn_prep", "fps")}:
+        raise AssertionError(f"recorded bf16 RCNN step calls do not match its launches {recorded}")
+    step_ms = [s["ms"] for s in monitor.steps]
+    rep.update(steps_with_positive_rois=positive,
+               median_ms_after_first=float(np.median(step_ms[1:])))
+    print("bf16 RCNN train steps ms (batch 1, 64 RoIs): " + " ".join(f"{t:.2f}" for t in step_ms)
+          + f"; peak device memory {rep['peak_mem_gb']:.2f} GB; {positive} steps with a "
+          "positive RoI", flush=True)
+    rows = {}
+    with torch.no_grad():
+        knn_rows(rows, calls, REPS, "_bf16_rcnn_train")
+        fps_row(rows, calls, REPS, "_bf16_rcnn_train", sweeps=False)
+    if rows["knn_prep_bf16_rcnn_train"]["calls"] or recorded["knn_prep"]:
+        raise AssertionError("a bf16 RCNN KNN call took the sorted arm")
+    del rows["knn_prep_bf16_rcnn_train"]  # not on this path: every set is below 4096 points
+    for name in RCNN_KERNELS:
+        rows[name + "_bf16_rcnn_train"]["launches"] = recorded[name]
+    del calls, monitor.calls, state
+    torch.cuda.empty_cache()
+    report["rcnn"] = rep
+    return rows
+
+
+def bf16_small_width_train(out_root):
+    """Step 14 (d): one bf16 step at `rpn_unittest` and at `rcnn_unittest`
+    width on the card against the CPU (`step_agrees(bf16=True)`)."""
+    import copy
+
+    from heterofusionrcnn_torch.experiments import common
+    from heterofusionrcnn_torch.runtime.trainer import batch_to_device
+    from heterofusionrcnn_torch.runtime.train_state import make_rpn_train_step
+    from tests.rcnn_fixtures import write_handoff
+
+    out = {}
+    cfg = no_dropout(common.resolve_config("rpn_unittest", KITTI_DIR))
+    cfg.model_config.compute_dtype = "bfloat16"
+    batch, dataset = train_batch(cfg, "cpu", SEED)
+    out["rpn_unittest"] = step_agrees(cfg, batch, dataset, make_rpn_train_step, SEED, bf16=True)
+    cfg = no_dropout(common.resolve_config("rcnn_unittest", KITTI_DIR))
+    cfg.model_config.compute_dtype = "bfloat16"
+    dataset = common.build_dataset(cfg, "train", "train")
+    dataset.seed(SEED)
+    root = os.path.join(out_root, "chip_smoke_bf16_rcnn_unittest")
+    shutil.rmtree(root, ignore_errors=True)
+    dataset.proposal_dir, dataset.proposal_iou_dir, dataset.rpn_feature_dir = write_handoff(
+        dataset, root)
+    batch = batch_to_device(common.make_batch_fn(cfg, dataset, "rcnn", 2)(), "cpu")
+    out["rcnn_unittest"] = step_agrees(copy.deepcopy(cfg), batch, dataset,
+                                       common.make_rcnn_train_step, SEED, bf16=True)
+    if not out["rcnn_unittest"][1]["cpu"]["rcnn_reg_loss"] > 0:
+        raise AssertionError("the bf16 rcnn_unittest step holds no positive RoI")
+    for name, (agree, d) in out.items():
+        print(f"{name} bf16 step, card against CPU: losses {d['cuda']} / {d['cpu']}; worst "
+              f"gradient (share of its largest, L2) image branch {d['worst'][0]}, elsewhere "
+              f"{d['worst'][1]} (bounds {BF16_GRAD_SHARE}, {BF16_GRAD_L2}); {d['capped']} "
+              f"elements at the 2 x lr cap ({d['capped_share']:.6f} of the parameters)",
+              flush=True)
+        if not agree:
+            raise AssertionError(f"{name} bf16 train step: card and CPU disagree: "
+                                 f"{d['outside'][:8]}")
+    return {k: dict(agrees=a, **d) for k, (a, d) in out.items()}
+
+
+def bf16_train_phase(kernels, out_root):
+    """Step 14 (module docstring): bf16 training, cells C and D in bf16 (cell
+    I), the val forwards, the unittest-width card/CPU steps and two gloo
+    ranks. Returns the report and the kernel rows."""
+    from heterofusionrcnn_torch.experiments import common
+    from heterofusionrcnn_torch.models.extractors.layers import init_weights
+    from tests import torch_dp_worker
+    from tests.rcnn_fixtures import write_handoff
+
+    t_phase = time.perf_counter()
+    root = os.path.join(out_root, "chip_smoke_bf16_train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    report = dict(card=card_line())
+    rows = bf16_rpn_train(kernels, root, report)
+    rows.update(bf16_rcnn_train(kernels, root, report))
+    report["small_width"] = bf16_small_width_train(out_root)
+
+    cfg = common.resolve_config("rcnn_unittest", KITTI_DIR)
+    cfg.model_config.compute_dtype = "bfloat16"
+    cfg.train_config.optimizer.use_moving_average = True
+    cfg.train_config.optimizer.moving_average_decay = 0.9
+    dataset = common.build_dataset(cfg, "train", "train")
+    dataset.seed(SEED)
+    dataset.proposal_dir, dataset.proposal_iou_dir, dataset.rpn_feature_dir = write_handoff(
+        dataset, os.path.join(root, "rcnn_handoff"))
+    next_batch = common.make_batch_fn(cfg, dataset, "rcnn", 2)
+    model, _ = torch_dp_worker.build("rcnn", cfg)
+    init_weights(model, SEED)
+    spec = dict(kind="rcnn", cfg=cfg, state_dict=model.state_dict(), seed=SEED,
+                batches=[next_batch() for _ in range(DP_STEPS)])
+    report["gloo_rcnn"] = dp_run(spec, 2, "gloo", root, "rcnn_unittest_bf16_gloo_w2",
+                                 kernels=RCNN_KERNELS, agree=bf16_dp_steps_agree)
+    if not all(m["rcnn_reg_loss"] > 0 for m in report["gloo_rcnn"]["one_process_metrics"]):
+        raise AssertionError("a bf16 rcnn_unittest step without a positive RoI")
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"bf16 training phase: {report['phase_s']:.1f} s", flush=True)
+    return report, finish_rows(rows)
 
 
 def main(argv=None) -> int:
@@ -3090,6 +3568,9 @@ def main(argv=None) -> int:
                                                   args.out)
     rows.update(bf16_kernel_rows)
     report["data_parallel"] = dp_phase(args.out)
+    report["bf16_training"], bf16_train_rows = bf16_train_phase(dict(kernels, **kernels_bf16),
+                                                                args.out)
+    rows.update(bf16_train_rows)
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

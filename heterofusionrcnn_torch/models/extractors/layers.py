@@ -17,13 +17,15 @@ JAX package's `HFR_PALLAS_CONV=1`; off, they run the cuDNN / CPU conv and
 BatchNorm, the JAX package's default path.
 
 `dtype` is the compute dtype of the flax modules' `dtype=` (None: float32;
-`torch.bfloat16` for the bf16 serving path). Parameters and buffers stay
-float32, so a float32 checkpoint serves in bf16: a Dense or conv casts its
-input, kernel and bias to `dtype`, takes the product in `dtype` (float32
-sums) and adds the bias in `dtype`; a BatchNorm in inference subtracts its
-float32 mean from the bf16 input, which promotes the normalisation to
-float32, and rounds the result to bf16 once (flax `_normalize`). The
-bf16 path is inference-only.
+`torch.bfloat16` for mixed precision, in training and inference).
+Parameters and buffers stay float32, so one float32 checkpoint serves and
+trains in either dtype: a Dense or conv casts its input, kernel and bias
+to `dtype`, takes the product in `dtype` (float32 sums) and adds the bias
+in `dtype`, and autograd returns float32 gradients through each cast to
+the float32 parameters (the transpose of JAX's cast); a BatchNorm
+normalises a bf16 input in float32 (its batch statistics, or its running
+ones in inference, are float32) and rounds the result to bf16 once (flax
+`_compute_stats` and `_normalize`); dropout keeps the input's dtype.
 """
 
 from __future__ import annotations
@@ -53,6 +55,17 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     return y if bias is None else y + bias.to(dtype)
 
 
+def elu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.elu`: `F.elu` in float32; in a reduced precision (bf16) the
+    JAX function's own form where(x > 0, x, expm1(where(x > 0, 0, x))), so
+    that its backward rounds as JAX's does (the cotangent times
+    expm1(x) + 1, each rounded to x's dtype) where `F.elu`'s rounds once."""
+    if x.dtype == torch.float32:
+        return F.elu(x)
+    pos = x > 0
+    return torch.where(pos, x, torch.expm1(torch.where(pos, torch.zeros_like(x), x)))
+
+
 def batch_norm_eval_promoted(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
                              channel_dim: int) -> torch.Tensor:
     """flax `nn.BatchNorm` in inference on a reduced-precision `x`:
@@ -73,20 +86,29 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     variance) over every dimension but `channel_dim`, and move the running
     statistics to (1 - momentum) * running + momentum * batch.
 
+    A reduced-precision `x` (bf16) is widened to float32 for all of it, as
+    flax's `force_float32_reductions`: the statistics, x - mean and the
+    affine are float32, the running statistics move in float32, and the
+    result is rounded to x's dtype once. As in flax, the statistics and the
+    normalisation widen x apart, so the backward rounds each path's
+    gradient to x's dtype before adding them. flax keeps the fast
+    variance's cancellation for channels of a large mean, and so does this.
+
     With a data-parallel `group` the batch is the global one: the mean and
-    E[x^2] come from the sums of x and x^2 all-reduced over the group (one
-    all-reduce, differentiable, `parallel/mesh.py`) over the global count
-    of elements, so every rank normalises and moves its running statistics
-    alike."""
+    E[x^2] come from the float32 sums of x and x^2 all-reduced over the
+    group (one all-reduce, differentiable, `parallel/mesh.py`) over the
+    global count of elements, so every rank normalises and moves its
+    running statistics alike."""
     dims = [d for d in range(x.dim()) if d != channel_dim % x.dim()]
     shape = [1] * x.dim()
     shape[channel_dim] = x.shape[channel_dim]
+    xs = x.float()
     if group is None:
-        mean = x.mean(dims)
-        mean_sq = (x * x).mean(dims)
+        mean = xs.mean(dims)
+        mean_sq = (xs * xs).mean(dims)
     else:
         c = x.shape[channel_dim]
-        sums = all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims)]), group)
+        sums = all_reduce_sum(torch.cat([xs.sum(dims), (xs * xs).sum(dims)]), group)
         count = (x.numel() // c) * dist.get_world_size(group)
         mean, mean_sq = sums[:c] / count, sums[c:] / count
     var = torch.clamp(mean_sq - mean * mean, min=0.0)
@@ -94,7 +116,8 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
         bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
         bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return (x - mean.reshape(shape)) * mul.reshape(shape) + bn.bias.reshape(shape)
+    y = (x.float() - mean.reshape(shape)) * mul.reshape(shape) + bn.bias.reshape(shape)
+    return y.to(x.dtype)
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -145,12 +168,16 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     With a data-parallel `group` the draw is the global batch's (leading
     axis x world size) and this rank keeps its rows of it, so its mask is
     its rows of a one-process mask and every rank's generator advances
-    alike."""
+    alike. The scaling runs in x's dtype as flax's `inputs / keep_prob`
+    does: a Python float meets a JAX array as a weak type, rounded to the
+    array's dtype, so a bf16 input is divided by 1 - rate rounded to bf16
+    and stays bf16."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a generator")
     keep = 1.0 - rate
+    scale = float(torch.tensor(keep, dtype=x.dtype))
     if group is None:
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     else:
@@ -158,7 +185,7 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
         shape = (b * dist.get_world_size(group), *x.shape[1:])
         draw = torch.rand(shape, generator=generator, device=x.device)
         mask = draw[rank * b:(rank + 1) * b] < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    return torch.where(mask, x / scale, torch.zeros_like(x))
 
 
 class DenseBN(nn.Module):
@@ -175,7 +202,7 @@ class DenseBN(nn.Module):
     def forward(self, x):
         x = linear(x, self.Dense_0.weight, self.Dense_0.bias, self.dtype)
         if self.activation:
-            x = F.elu(x)
+            x = elu(x)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x)
         return x
@@ -214,7 +241,7 @@ class DepthwiseConvOverK(nn.Module):
             x, w = x.to(self.dtype), w.to(self.dtype)
         out = torch.einsum("bpkc,kcj->bpcj", x, w).reshape(b, p, -1)
         if self.activation:
-            out = F.elu(out)
+            out = elu(out)
         if self.BatchNorm_0 is not None:
             out = self.BatchNorm_0(out)
         return out
@@ -252,7 +279,7 @@ class SeparableConvOverK(nn.Module):
         if bias is not None:
             out = out + bias
         if self.activation:
-            out = F.elu(out)
+            out = elu(out)
         if self.BatchNorm_0 is not None:
             out = self.BatchNorm_0(out)
         return out

@@ -16,12 +16,13 @@ JAX model stops their gradient. BatchNorm, dropout and path drop follow the
 module's `training` flag; every random draw comes from a generator the
 caller passes ("dropout" and "path_drop", the flax rng streams).
 
-`config.compute_dtype` "bfloat16" serves in bf16 as the RPN does
-(`models/rpn.py`): the layers compute in bf16, the heads are cast to
-float32 (JAX rcnn.py:221, :234); mixed-dtype operands promote as in JAX
-(the bilinear image crop of a bf16 map is float32, and so is the fused
-vector of bf16 point and float32 image RoI features). Train mode raises
-for it.
+`config.compute_dtype` "bfloat16" serves and trains in bf16 as the RPN
+does (`models/rpn.py`): the layers compute in bf16, the heads are cast to
+float32 (JAX rcnn.py:221, :234) before the losses; mixed-dtype operands
+promote as in JAX (the bilinear image crop of a bf16 map is float32, and
+so is the fused vector of bf16 point and float32 image RoI features); the
+canonical transform and the crop stay float32, and the handoff's float32
+`rpn_fts` are cast at the layers.
 """
 
 from __future__ import annotations
@@ -52,7 +53,6 @@ from heterofusionrcnn_torch.models.extractors.layers import DenseBN, dropout
 from heterofusionrcnn_torch.models.extractors.pointcnn import PointCNN
 from heterofusionrcnn_torch.models.rpn import (
     bin_params,
-    check_dtype_mode,
     compute_dtype,
     create_path_drop_masks,
     decode_bins,
@@ -89,7 +89,7 @@ class RcnnModel(nn.Module):
         rc = config.rcnn_config
         if mode not in ("train", "val", "test"):
             raise ValueError(f"unknown mode {mode!r}")
-        self.dtype = compute_dtype(config, mode)
+        self.dtype = compute_dtype(config)
         dt = dict(dtype=self.dtype)
         self.config = config
         self.num_classes = num_classes
@@ -155,7 +155,6 @@ class RcnnModel(nn.Module):
         GT box, and proposals_gt (B, n, 8), that box and its class (0
         background, 1..K). `generators`: {"dropout", "path_drop"} in
         training."""
-        check_dtype_mode(self)
         cfg = self.config
         rc = cfg.rcnn_config
         lc = cfg.layers_config

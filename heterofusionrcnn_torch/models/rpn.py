@@ -19,12 +19,14 @@ Every random draw comes from a generator the caller passes: "dropout" and
 "path_drop", the names of the flax rng streams.
 
 `config.compute_dtype` "bfloat16" runs the extractors and the dense layers
-in bf16 (mixed precision as flax has it: float32 parameters, float32
-BatchNorm normalisation, see `extractors/layers.py`) in test and val mode,
-the JAX model's `dtype`; the heads are cast to float32 (JAX rpn.py:218,
-:294), so the bin decode, proposals, NMS, KNN and FPS stay float32, and the
-saved stage-1 features (`rpn_fts`, `rpn_img_fts`, `img_feature_map`) are
-bf16. bf16 training is not ported: train mode raises for it.
+in bf16 (mixed precision as flax has it: float32 parameters, gradients and
+BatchNorm normalisation, see `extractors/layers.py`) in every mode, the
+JAX model's `dtype`; the heads are cast to float32 (JAX rpn.py:218, :294),
+so the losses, the bin decode, proposals, NMS, KNN and FPS stay float32,
+and the saved stage-1 features (`rpn_fts`, `rpn_img_fts`,
+`img_feature_map`) are bf16. Path drop's masks are float32 0-d tensors,
+which keep a bf16 feature bf16 under torch's promotion, as JAX's weakly
+typed masks do.
 
 The non-fixed NMS path (`rpn_fixed_num_proposal_nms=False`, the FG
 resample) is not ported.
@@ -138,24 +140,14 @@ def _pc_in_channels(config: ModelConfig) -> int:
     return 1 if config.rpn_config.rpn_use_intensity_feature else 0
 
 
-def compute_dtype(config: ModelConfig, mode: str) -> Optional[torch.dtype]:
+def compute_dtype(config: ModelConfig) -> Optional[torch.dtype]:
     """The layers' dtype for `config.compute_dtype`: None (float32) or
-    `torch.bfloat16`, which serves (val and test mode) but does not train."""
+    `torch.bfloat16`, in every mode."""
     if config.compute_dtype == "float32":
         return None
     if config.compute_dtype != "bfloat16":
         raise NotImplementedError(f"compute_dtype {config.compute_dtype!r} is not ported")
-    if mode == "train":
-        raise NotImplementedError("compute_dtype 'bfloat16' is ported for val and test mode "
-                                  "only: bf16 training is not ported")
     return torch.bfloat16
-
-
-def check_dtype_mode(module: nn.Module) -> None:
-    """Raise for a bf16 model put in training (`module.train()`)."""
-    if module.training and module.dtype is not None:
-        raise NotImplementedError("compute_dtype 'bfloat16' does not train: bf16 training "
-                                  "is not ported")
 
 
 class RpnModel(nn.Module):
@@ -176,7 +168,7 @@ class RpnModel(nn.Module):
             raise NotImplementedError("the non-fixed NMS path is not ported")
         if mode not in ("train", "val", "test"):
             raise ValueError(f"unknown mode {mode!r}")
-        self.dtype = compute_dtype(config, mode)
+        self.dtype = compute_dtype(config)
         dt = dict(dtype=self.dtype)
         self.config = config
         self.num_classes = num_classes
@@ -214,7 +206,6 @@ class RpnModel(nn.Module):
         in train and val mode label_segs (B, P) (-1 ignore, 0 background,
         1..K), label_regs (B, P, 7) and, for val's IoUs, label_boxes
         (B, m, 7). `generators`: {"dropout", "path_drop"} in training."""
-        check_dtype_mode(self)
         cfg = self.config
         rpn_cfg = cfg.rpn_config
         training = self.training

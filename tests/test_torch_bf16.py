@@ -30,7 +30,7 @@ in bf16, on the CPU, at small widths.
   Proposals and final boxes are compared as matched row sets (a bf16-level
   score difference can reorder near ties; each test states the share).
 - Parameters stay float32 with the float32 model's state-dict keys, and
-  train mode raises (tests/test_torch_models.py).
+  train mode trains (tests/test_torch_bf16_training.py).
 
 The float32 parity tests are untouched; the kernels themselves in bf16 run
 on the card (tests/test_torch_cuda.py, chip_smoke.py).

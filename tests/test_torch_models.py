@@ -33,8 +33,9 @@ from heterofusionrcnn_tpu.models.rpn import RpnModel as JaxRpn
 from heterofusionrcnn_torch.configs import presets as torch_presets
 from heterofusionrcnn_torch.convert import load_flax_variables
 from heterofusionrcnn_torch.inference import CLUSTER_SIZES, TwoStageDetector, random_batch
-from heterofusionrcnn_torch.models.rcnn import RcnnModel
-from heterofusionrcnn_torch.models.rpn import RpnModel
+from heterofusionrcnn_torch.models.extractors.layers import init_weights
+from heterofusionrcnn_torch.models.rcnn import RcnnModel, rcnn_loss
+from heterofusionrcnn_torch.models.rpn import RpnModel, rpn_loss
 
 from tests.test_torch_layers import as_jax, direct_knn, random_variables
 
@@ -161,27 +162,46 @@ def test_rcnn_and_two_stage(monkeypatch, shared_map):
 
 
 @pytest.mark.parametrize("stage", ["rpn", "rcnn"])
-def test_bf16_train_mode_raises(stage):
-    """compute_dtype "bfloat16" serves (val and test mode,
-    tests/test_torch_bf16.py) but does not train: the port has no bf16
-    training path, so a bf16 model refuses train mode when built in it and
-    when put into training, instead of training in float32."""
+def test_bf16_train_mode_builds_and_runs(stage):
+    """compute_dtype "bfloat16" trains (tests/test_torch_bf16_training.py):
+    a bf16 model builds in train mode and runs a train-mode forward and
+    backward, its heads float32 before the loss, every gradient float32
+    and finite."""
+    rng = np.random.default_rng(4)
     if stage == "rpn":
         cfg = torch_presets.rpn_unittest().model_config
         cfg.compute_dtype = "bfloat16"
-        with pytest.raises(NotImplementedError, match="compute_dtype"):
-            RpnModel(cfg, 3, CLUSTER_SIZES, mode="train")
-        model = RpnModel(cfg, 3, CLUSTER_SIZES, mode="val").train()
-        b = {k: torch.from_numpy(x) for k, x in _inputs().items()}
-        with pytest.raises(NotImplementedError, match="compute_dtype"):
-            model(b["point_cloud"], b["image_input"], b["stereo_calib_p2"])
+        model = init_weights(RpnModel(cfg, 3, CLUSTER_SIZES, mode="train"), 0).train()
+        b = {k: torch.from_numpy(x[:1]) for k, x in _inputs().items()}
+        bsz, p = b["point_cloud"].shape[:2]
+        segs = torch.from_numpy(rng.integers(-1, 4, (bsz, p)).astype(np.int32))
+        regs = torch.from_numpy(rng.uniform(0.5, 3.0, (bsz, p, 7)).astype(np.float32))
+        gens = {"dropout": torch.Generator().manual_seed(0),
+                "path_drop": torch.Generator().manual_seed(1)}
+        out = model(b["point_cloud"], b["image_input"], b["stereo_calib_p2"], segs, regs,
+                    generators=gens)
+        heads = [out["seg_softmax"], *out["cls_preds"], *out["reg_preds"]]
+        _, total = rpn_loss(out, cfg)
     else:
         cfg = torch_presets.rcnn_unittest().model_config
         cfg.compute_dtype = "bfloat16"
-        with pytest.raises(NotImplementedError, match="compute_dtype"):
-            RcnnModel(cfg, 3, CLUSTER_SIZES, 64 + 8, mode="train")
-        model = RcnnModel(cfg, 3, CLUSTER_SIZES, 64 + 8, mode="test").train()
-        with pytest.raises(NotImplementedError, match="compute_dtype"):
-            model(torch.zeros(1, 2, 7), torch.zeros(1, 8, 3), torch.zeros(1, 8),
-                  torch.zeros(1, 8), torch.zeros(1, 8, 72), torch.zeros(1, 16, 16, 3),
-                  torch.zeros(1, 3, 4))
+        model = init_weights(RcnnModel(cfg, 3, CLUSTER_SIZES, 64 + 8, mode="train"), 0).train()
+        n, pts = 4, torch.from_numpy(rng.uniform(-2, 2, (1, 64, 3)).astype(np.float32))
+        props = torch.tensor([[[0.0, 0.0, 0.0, 3.9, 1.6, 1.5, 0.0]] * n])
+        gt = torch.cat([props, torch.ones(1, n, 1)], -1)
+        gens = {"dropout": torch.Generator().manual_seed(0),
+                "path_drop": torch.Generator().manual_seed(1)}
+        out = model(props, pts, torch.zeros(1, 64), torch.ones(1, 64),
+                    torch.from_numpy(rng.standard_normal((1, 64, 72)).astype(np.float32)),
+                    torch.from_numpy(rng.uniform(0, 255, (1, 16, 16, 3)).astype(np.float32)),
+                    torch.eye(3, 4)[None], proposals_iou=torch.full((1, n), 0.9),
+                    proposals_gt=gt, generators=gens)
+        heads = [out["cls_logits"], *out["mb_cls_preds"], *out["mb_reg_preds"]]
+        _, total = rcnn_loss(out, cfg)
+    assert model.dtype == torch.bfloat16
+    assert all(h.dtype == torch.float32 for h in heads)
+    total.backward()
+    assert total.dtype == torch.float32 and bool(torch.isfinite(total))
+    for name, prm in model.named_parameters():
+        assert prm.dtype == prm.grad.dtype == torch.float32, name
+        assert bool(torch.isfinite(prm.grad).all()), name

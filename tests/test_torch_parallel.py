@@ -41,6 +41,23 @@ gradient of 0 in exact arithmetic, so rounding noise whose sign Adam
 turns into an update of about lr: their gradients are held below 1e-5 on
 both sides, their values within 2 x lr more. Against JAX,
 tests/test_torch_training.py's `test_two_train_steps` tolerances.
+
+bf16 (`compute_dtype` "bfloat16"): the BatchNorms' sums stay float32 and
+are all-reduced in float32, so the running statistics and the weight and
+bias gradients of a bf16 input hold the float32 tolerances, its bf16
+output and input gradient one bf16 ulp (the input gradient 2^-7 of its
+largest element more); dropout's bf16 mask and output exactly. Two bf16
+train steps (the RPN and the RCNN, each step from the one-process state)
+are held at bf16 resolution: a float32 sum of the other order rounds an
+activation to the neighbouring bf16 value now and then, and the layers
+carry it on. Metrics within 2^-7 relative; each step's gradient within
+BF16_GRAD_SHARE of its largest |element| and BF16_GRAD_L2 in relative L2
+norm (wider in the image branch); every parameter and EMA entry as in
+float32 plus 2 x lr |dg| / sqrt(v_hat) at most 2 x lr, the elements at
+that cap (gradients that bf16 does not resolve to a sign) counted and
+bounded near the measured count; statistics within 1e-2 of their largest
+|element| and 1e-6 absolute (a running mean that is 0 in exact
+arithmetic holds ~1e-7 of noise).
 """
 
 from __future__ import annotations
@@ -91,6 +108,20 @@ DEADLINE_S = 180          # every run of ranks, joined within it
 TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-5, atol=1e-4)   # atol: x the tensor's largest |element|
 ATOL_FLOOR = 1e-8
+# bf16 (module docstring): one bf16 ulp of |x|, relative.
+BF16_ULP = 2.0 ** -7
+BF16_LAYER_ATOL_SHARE = 2.0 ** -7
+BF16_LOSS_RTOL = 2.0 ** -7
+# Per part (the image branch, everything else): measured 0.17 / 0.13 of the
+# largest |element| and 0.11 / 0.088 in relative L2 (the RPN; the RCNN
+# 0.14 / 0.059 and 0.085 / 0.050).
+BF16_GRAD_SHARE = (0.35, 0.25)
+BF16_GRAD_L2 = (0.2, 0.15)
+BF16_STATS_SHARE = 1e-2
+BF16_STATS_ATOL = 1e-6
+# The elements a bf16 step leaves at the 2 x lr cap, per step (measured:
+# the RPN 4,459 and 362 of 158,312, the RCNN 3,049 and 139 of 292,984).
+BF16_WIDENED_MAX = {"rpn": (5_400, 450), "rcnn": (3_700, 170)}
 
 
 @pytest.fixture(autouse=True)
@@ -221,6 +252,46 @@ def test_dropout_draws_the_global_mask(layer_results):
     assert 0 < int(want["dropout"]["mask"].sum()) < want["dropout"]["mask"].numel()
 
 
+@pytest.mark.parametrize("name", ["bn_last_bf16", "bn_nchw_bf16"])
+def test_batch_norm_bf16_over_the_global_batch(layer_results, name):
+    """The BatchNorms on a bf16 input at world 2 against world 1: the
+    statistics' sums all-reduced in float32, so the running statistics and
+    the weight and bias gradients (float32) as the float32 case's; the bf16
+    output and input gradient within one bf16 ulp of |want| (a float32
+    statistic in another summation order can round an element to the
+    neighbouring bf16 value; BF16_LAYER_ATOL_SHARE of the largest element
+    more for the input gradient, whose batch sums cancel)."""
+    want, ranks = layer_results
+    want = want[name]
+    assert want["y"].dtype == want["x_grad"].dtype == torch.bfloat16
+    for r, got in enumerate(ranks):
+        got = got[name]
+        assert got["y"].dtype == got["x_grad"].dtype == torch.bfloat16
+        assert got["running_mean"].dtype == got["weight_grad"].dtype == torch.float32
+        for key, share in (("y", 0.0), ("x_grad", BF16_LAYER_ATOL_SHARE)):
+            g, w = got[key].float(), _rows(want[key], r).float()
+            bound = BF16_ULP * w.abs() + share * float(w.abs().max())
+            assert bool(((g - w).abs() <= bound).all()), (key, float((g - w).abs().max()))
+        for key in ("running_mean", "running_var"):
+            _close(got[key], want[key])
+    for key in ("weight_grad", "bias_grad"):
+        _close(sum(got[name][key] for got in ranks), want[key])
+
+
+def test_dropout_bf16_draws_the_global_mask(layer_results):
+    """A bf16 input's dropout at world 2: each rank's mask and bf16 output
+    are its rows of the one-process ones, bit for bit."""
+    want, ranks = layer_results
+    want = want["dropout_bf16"]
+    assert want["y"].dtype == torch.bfloat16
+    for r, got in enumerate(ranks):
+        got = got["dropout_bf16"]
+        assert torch.equal(got["mask"], _rows(want["mask"], r))
+        assert torch.equal(got["y"], _rows(want["y"], r))
+        assert torch.equal(got["next"], want["next"])
+    assert torch.equal(want["mask"], layer_results[0]["dropout"]["mask"])
+
+
 @pytest.mark.parametrize("loss", ["bin", "rpn", "rcnn"])
 @pytest.mark.parametrize("case", list(LOSS_CASES))
 def test_loss_shares_sum_to_the_global_loss(layer_results, case, loss):
@@ -343,6 +414,100 @@ def test_rcnn_train_steps_match_one_process(tmp_path):
     want = _check_steps(
         spec, lambda spec: _run_ranks(worker.steps_rank, spec, tmp_path / "ranks"), 13)
     assert all(st["metrics"]["rcnn_reg_loss"] > 0 for st in want["steps"])
+
+
+def _check_bf16_steps(spec, run_ranks, n_bn_followed):
+    """`_check_steps` for a bf16 model: the ranks' bf16 activations round
+    apart from one process's wherever a float32 sum in another order lands
+    on the other side of a bf16 rounding, so each step is held at bf16
+    resolution (module docstring): metrics within BF16_LOSS_RTOL, each
+    step gradient (from Adam's first moment) within BF16_GRAD_SHARE of the
+    tensor's largest |element| and BF16_GRAD_L2 in relative L2 norm, every
+    parameter and EMA entry within TOL plus 2 x lr |dg| / sqrt(v_hat) (at
+    most 2 x lr; the elements at that cap counted), every statistic within
+    BF16_STATS_SHARE of its largest |element| and BF16_STATS_ATOL, and all
+    of it float32. Returns the one-process run and the widened counts of
+    each step on each rank."""
+    want = worker.run_steps(spec, None, "cpu")
+    spec = dict(spec, restarts=[None] + [{k: st[k] for k in ("state_dict", "optimizer")}
+                                         for st in want["steps"][:-1]])
+    ranks = run_ranks(spec)
+    lr = float(spec["cfg"].train_config.optimizer.initial_learning_rate)
+    names = list(want["steps"][0]["optimizer"]["state"]["mu"])
+    assert sum(bool(BN_FOLLOWED_BIAS.search(n)) for n in names) == n_bn_followed
+    widened = []
+    for i, w in enumerate(want["steps"]):
+        before = (want["steps"][i - 1]["optimizer"]["state"]["mu"] if i
+                  else {n: 0.0 for n in names})
+        for got in ranks:
+            g = got["steps"][i]
+            for key, val in w["metrics"].items():
+                assert abs(g["metrics"][key] - val) <= BF16_LOSS_RTOL * abs(val), (i, key)
+            noise, n_wide = {}, 0
+            for name in names:
+                gw = _step_grads(want["steps"], i, name, before[name])
+                gg = _step_grads(got["steps"], i, name, before[name])
+                assert gg.dtype == torch.float32
+                if BN_FOLLOWED_BIAS.search(name):  # 0 in exact arithmetic: noise on each side
+                    noise[name] = 2 * lr
+                    continue
+                err = (gg - gw).abs()
+                scale = max(float(gw.abs().max()), 1e-30)
+                part = 0 if name.startswith("img_vgg_pyr.") else 1
+                assert float(err.max()) <= BF16_GRAD_SHARE[part] * scale, (
+                    i, name, float(err.max()) / scale)
+                assert float(err.norm()) <= BF16_GRAD_L2[part] * max(float(gw.norm()), 1e-30), (
+                    i, name)
+                v_hat = w["optimizer"]["state"]["nu"][name] / (1 - ADAM_B2 ** (i + 1))
+                noise[name] = torch.clamp(2 * lr * err / (torch.sqrt(v_hat) + ADAM_EPS),
+                                          max=2 * lr)
+                n_wide += int((noise[name] >= 2 * lr).sum())
+            widened.append(n_wide)
+            for part in ("state_dict", "ema"):
+                gs = g["state_dict"] if part == "state_dict" else g["optimizer"]["ema"]
+                ws = w["state_dict"] if part == "state_dict" else w["optimizer"]["ema"]
+                for name, wt in ws.items():
+                    if not wt.is_floating_point():
+                        assert torch.equal(gs[name], wt), name
+                        continue
+                    assert gs[name].dtype == torch.float32, name
+                    if name in noise:
+                        bound = TOL["rtol"] * wt.abs() + TOL["atol"] + noise[name]
+                    else:  # a BatchNorm statistic
+                        bound = BF16_STATS_SHARE * float(wt.abs().max()) + BF16_STATS_ATOL
+                    err = (gs[name] - wt).abs()
+                    assert bool((err <= bound).all()), (i, part, name, float(err.max()))
+    assert ranks[0]["step"] == want["step"] == len(spec["batches"])
+    for name, t in ranks[0]["steps"][-1]["state_dict"].items():
+        assert torch.equal(t, ranks[1]["steps"][-1]["state_dict"][name]), name
+    return want, widened
+
+
+@pytest.mark.parametrize("kind", ["rpn", "rcnn"])
+def test_bf16_train_steps_match_one_process(tmp_path, kind):
+    """Two bf16 train steps (`compute_dtype` "bfloat16", dropout and path
+    drop on) at world 2 and in one process on the same global batches of
+    2: the RPN on the fixture batches, the RCNN on a synthetic handoff."""
+    if kind == "rpn":
+        cfg = torch_presets.rpn_unittest()
+        batches = [{k: b[k] for k in common.RPN_BATCH_KEYS} for b in _batches()]
+    else:
+        cfg = torch_presets.rcnn_unittest()
+        ds = KittiDataset(cfg.dataset_config, "train")
+        ds.seed(0)
+        ds.proposal_dir, ds.proposal_iou_dir, ds.rpn_feature_dir = write_handoff(
+            ds, str(tmp_path / "handoff"))
+        next_batch = common.make_batch_fn(cfg, ds, "rcnn", 2)
+        batches = [next_batch(), next_batch()]
+    cfg.model_config.compute_dtype = "bfloat16"
+    spec = _steps_spec(kind, cfg, batches, seed=7)
+    want, widened = _check_bf16_steps(
+        spec, lambda spec: _run_ranks(worker.steps_rank, spec, tmp_path / "ranks"),
+        18 if kind == "rpn" else 13)
+    assert widened[::2] == widened[1::2]  # the two ranks alike
+    assert all(n <= cap for n, cap in zip(widened[::2], BF16_WIDENED_MAX[kind])), widened
+    if kind == "rcnn":
+        assert all(st["metrics"]["rcnn_reg_loss"] > 0 for st in want["steps"])
 
 
 # ---------------------------------------------------------------------------

@@ -127,10 +127,12 @@ def layer_cases(inputs: Dict[str, dict], group) -> dict:
       - "bn_last", "bn_nchw": a `BatchNorm` (channels last) or `BatchNorm2d`
         (NCHW) in training on rows of "x", its loss sum(out * "cot"): the
         output, the running statistics and the gradients of x, weight and
-        bias;
+        bias; "bn_last_bf16", "bn_nchw_bf16": the same on "x" rounded to
+        bf16 (a bf16 output and x gradient, float32 statistics);
       - "dropout": the kept mask of a rate-0.3 dropout of rows of ones of
         "shape", drawn from a generator seeded "seed", and that
-        generator's next uniform;
+        generator's next uniform; "dropout_bf16": the same on bf16 ones,
+        with the output;
       - "loss_<case>": `bin_losses`, `rpn_loss` and `rcnn_loss` (their
         loss dicts' values) on rows of the case's "rpn" and "rcnn"
         predictions.
@@ -138,24 +140,30 @@ def layer_cases(inputs: Dict[str, dict], group) -> dict:
     from heterofusionrcnn_torch.configs import presets
 
     out = {}
-    for name, cls in (("bn_last", BatchNorm), ("bn_nchw", BatchNorm2d)):
-        case = inputs[name]
+    for name, cls, dtype in (("bn_last", BatchNorm, torch.float32),
+                             ("bn_nchw", BatchNorm2d, torch.float32),
+                             ("bn_last_bf16", BatchNorm, torch.bfloat16),
+                             ("bn_nchw_bf16", BatchNorm2d, torch.bfloat16)):
+        case = inputs[name.removesuffix("_bf16")]
         bn = cls(len(case["weight"])).train()
         with torch.no_grad():
             bn.weight.copy_(torch.from_numpy(case["weight"]))
             bn.bias.copy_(torch.from_numpy(case["bias"]))
         bn.dp_group = group
-        x = _rows(case["x"], group).clone().requires_grad_(True)
+        x = _rows(case["x"], group).to(dtype).clone().requires_grad_(True)
         y = bn(x)
-        (y * _rows(case["cot"], group)).sum().backward()
+        (y.float() * _rows(case["cot"], group)).sum().backward()
         out[name] = dict(y=y, running_mean=bn.running_mean, running_var=bn.running_var,
                          x_grad=x.grad, weight_grad=bn.weight.grad, bias_grad=bn.bias.grad)
 
     case = inputs["dropout"]
-    gen = torch.Generator().manual_seed(case["seed"])
-    x = _rows(np.ones(case["shape"], np.float32), group)
-    out["dropout"] = dict(mask=dropout(x, 0.3, gen, group) != 0,
-                          next=torch.rand(1, generator=gen))
+    for name, dtype in (("dropout", torch.float32), ("dropout_bf16", torch.bfloat16)):
+        gen = torch.Generator().manual_seed(case["seed"])
+        x = _rows(np.ones(case["shape"], np.float32), group).to(dtype)
+        y = dropout(x, 0.3, gen, group)
+        out[name] = dict(mask=y != 0, next=torch.rand(1, generator=gen))
+        if dtype != torch.float32:
+            out[name]["y"] = y
 
     mc = presets.rpn_unittest().model_config
     for key, case in inputs.items():
