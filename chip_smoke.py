@@ -251,6 +251,36 @@
    measured spread printed. (e) Two bf16 `rcnn_unittest` steps on two
    gloo ranks sharing the card against this process's (step 13's `dp_run`,
    held by `bf16_dp_steps_agree`).
+15. The rest of stage 1 (`stage1_variants_phase`, cell J). (a) The
+   PointNet++ RPN (`rpn_multiclass` with `pc_extractor_type` "pointnet",
+   `rpn_pointnet_layers()`: SA 16384 -> 4096 -> 1024 -> 256 -> 64, four FP
+   levels) in test mode at batch 4 on the synthetic seed-0 inputs, random
+   weights and seeded BatchNorm statistics: counted (4 FPS and 1 NMS
+   launches, no KNN, prep or XConv), each FPS and NMS call bit-exact
+   (rows fps_pointnet, nms_pointnet), its ms (CUDA events, mean of 5),
+   device ms, busy share, peak memory, and the ball query's, `three_nn`'s
+   and `three_interpolate`'s ms and device ms by name (plain PyTorch on the
+   card, their recorded calls rerun alone). (b) `rpn_multiclass` with
+   `rpn_fixed_num_proposal_nms` False in test and val mode (synthetic
+   labels with more than 2048 foreground points a frame): one NMS launch a
+   forward over 2048 boxes a frame, bit-exact, keep indices unique, keeps
+   valid-first and score-sorted within post (row nms_nonfixed); the test
+   forward timed in turns against the fixed path on the same weights,
+   beside cell A's ms. (c) The PointNet++ RPN through `run_training` from a
+   saved config (batch 2, STAGE1_TRAIN_STEPS steps, each counted: FPS, no
+   KNN, XConv or NMS; losses finite; one step's FPS calls bit-exact, row
+   fps_pointnet_train), then `run_evaluation --save_rpn_feature` on 2
+   fixture frames into --out/chip_smoke_stage1, the handoff's feature
+   width `rpn_fts_channels`. (d) At `rpn_unittest` width on the card
+   against the CPU: an ids-sampling PointCNN (the same uniforms on both)
+   and a cxyz-sorted one in eval mode, features within
+   STAGE1_SMALL_RTOL / ATOL, the points equal; every KNN call bit-exact
+   (row knn_ids), every fused XConv and split epilogue of the sorted model
+   within the XConv gate (rows xconv_sorted, xconv_epilogue_sorted), each
+   of its neighbourhoods its KNN rows reordered. (e) The native
+   point-cloud loader against the numpy path on every fixture frame on
+   the card's host: byte-equal points, ms a frame each. Each part's
+   seconds are printed.
 
 Prints a {"kernels": [...]} JSON line, then the result as its last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -342,6 +372,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def plain_ms_and_result(fn, warm: bool):
+    """(ms, result) of a plain version: `cuda_ms(fn, 1)` and a run of its
+    own, or, unless `warm`, one cold run timed and kept (a plain version
+    of seconds a call runs once)."""
+    import torch
+
+    if warm:
+        return cuda_ms(fn, 1), fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
 class Recorder:
     """Wraps an op function and keeps the arguments of every call."""
 
@@ -375,21 +423,29 @@ def randomize_batchnorm(module, seed):
 def recording(ops=tuple(KERNEL_OPS.values())):
     """Wraps the kernel ops named in `ops` where the models call them;
     yields {op: [(args, kwargs), ...]}, one record per call."""
-    from heterofusionrcnn_torch.models.extractors import layers, pointcnn
-    from heterofusionrcnn_torch.ops import cropping, nms, xconv
+    from heterofusionrcnn_torch.models.extractors import layers, pointcnn, pointnet
+    from heterofusionrcnn_torch.ops import cropping, nms, sampling, xconv
 
-    where = {"knn_point": pointcnn, "farthest_point_sample": pointcnn,
-             "fused_xconv": pointcnn, "xconv_split_epilogue": xconv,
-             "oriented_nms": nms, "crop_gather": cropping,
-             "conv3x3_affine_relu": layers, "convtranspose3x3_affine_relu": layers}
-    recs = {op: Recorder(getattr(where[op], op)) for op in ops}
+    # The modules whose calls of each op are recorded (the same op reached
+    # from two modules goes into one list): ids sampling's KNN is
+    # `sampling`'s, the PointNet++ extractor's FPS and KNN `pointnet`'s.
+    where = {"knn_point": (pointcnn, pointnet, sampling),
+             "farthest_point_sample": (pointcnn, pointnet),
+             "fused_xconv": (pointcnn,), "xconv_split_epilogue": (xconv,),
+             "oriented_nms": (nms,), "crop_gather": (cropping,),
+             "conv3x3_affine_relu": (layers,), "convtranspose3x3_affine_relu": (layers,),
+             "query_ball_point": (pointnet,), "three_nn": (pointnet,),
+             "three_interpolate": (pointnet,)}
+    recs = {op: Recorder(getattr(where[op][0], op)) for op in ops}
     for op, rec in recs.items():
-        setattr(where[op], op, rec)
+        for mod in where[op]:
+            setattr(mod, op, rec)
     try:
         yield {op: rec.calls for op, rec in recs.items()}
     finally:
         for op, rec in recs.items():
-            setattr(where[op], op, rec.fn)
+            for mod in where[op]:
+                setattr(mod, op, rec.fn)
 
 
 def expected_launches(calls, names):
@@ -529,21 +585,23 @@ def epilogue_call_err(args, bf16=False):
 
 def nms_iou_count(boxes, scores, thresh, keep, valid):
     """IoUs the greedy loop needs on this data: at each keep step, one per
-    box still alive (valid, not kept, not suppressed by an earlier keep)."""
+    box still alive (valid, not kept, not suppressed by an earlier keep).
+    A frame's kept boxes against all in one IoU table, walked on the host."""
     import torch
 
     from heterofusionrcnn_torch.core.rotated_iou import bev_iou
 
     total = 0
     for f in range(boxes.shape[0]):
-        alive = torch.ones(boxes.shape[1], dtype=torch.bool, device=boxes.device)
+        ks = keep[f].tolist()
+        kept = ks[:ks.index(-1)] if -1 in ks else ks
+        over = (bev_iou(boxes[f, kept], boxes[f]) > thresh).cpu()
+        alive = torch.ones(boxes.shape[1], dtype=torch.bool)
         if valid is not None:
-            alive &= valid[f].bool()
-        for i in keep[f].tolist():
-            if i < 0:
-                break
+            alive &= valid[f].bool().cpu()
+        for j, i in enumerate(kept):
             total += int(alive.sum()) - 1
-            alive &= ~(bev_iou(boxes[f, i:i + 1], boxes[f])[0] > thresh)
+            alive &= ~over[j]
             alive[i] = False
     return total
 
@@ -678,9 +736,10 @@ def knn_rows(rows, calls, reps, suffix=""):
     r["visited_share"] = r["visited_pairs"] / max(r["sorted_pairs"], 1)
 
 
-def fps_row(rows, calls, reps, suffix="", sweeps=True):
+def fps_row(rows, calls, reps, suffix="", sweeps=True, warm_plain=True):
     """Row fps<suffix> over the recorded FPS calls; `sweeps` reruns each
-    call on clusters of every size."""
+    call on clusters of every size; `warm_plain` warms the plain version
+    up before its timed run."""
     import torch
 
     from heterofusionrcnn_torch.ops import sampling
@@ -699,11 +758,11 @@ def fps_row(rows, calls, reps, suffix="", sweeps=True):
     r["sweep"] = []
     for (xyz, npoint), _ in calls["farthest_point_sample"]:
         got = sampling.farthest_point_sample(xyz, npoint)
-        want = sampling.farthest_point_sample_plain(xyz, npoint)
+        pms, want = plain_ms_and_result(
+            lambda: sampling.farthest_point_sample_plain(xyz, npoint), warm_plain)
         if not torch.equal(got, want):
             raise AssertionError(f"fps picks differ at {tuple(xyz.shape)} -> {npoint}")
         ms = cuda_ms(lambda: sampling.farthest_point_sample(xyz, npoint), reps)
-        pms = cuda_ms(lambda: sampling.farthest_point_sample_plain(xyz, npoint), 1)
         b, n = xyz.shape[:2]
         add_bound(r, b * n * 12 + b * npoint * 4, 9.0 * b * n * npoint)
         r["latency_ms"] += npoint * r["iteration_us"] * 1e-3
@@ -724,9 +783,9 @@ def fps_row(rows, calls, reps, suffix="", sweeps=True):
                 lambda c: sampling._fps_kernel(xyz, npoint, c), reps)
 
 
-def nms_row(rows, calls, reps, suffix="", sweeps=True):
+def nms_row(rows, calls, reps, suffix="", sweeps=True, warm_plain=True):
     """Row nms<suffix> over the recorded NMS calls; `sweeps` reruns each
-    call on clusters of every size."""
+    call on clusters of every size; `warm_plain` as `fps_row`'s."""
     import torch
 
     from heterofusionrcnn_torch.ops import nms
@@ -741,11 +800,11 @@ def nms_row(rows, calls, reps, suffix="", sweeps=True):
         bev, scores, thresh, keep = a[:4]
         valid = a[4] if len(a) > 4 else kw.get("valid_mask")
         got, _ = nms.oriented_nms(bev, scores, thresh, keep, valid)
-        want = nms.oriented_nms_plain(bev, scores, thresh, keep, valid)
+        pms, want = plain_ms_and_result(
+            lambda: nms.oriented_nms_plain(bev, scores, thresh, keep, valid), warm_plain)
         if not torch.equal(got, want):
             raise AssertionError(f"nms keep lists differ at {tuple(bev.shape)} -> {keep}")
         ms = cuda_ms(lambda: nms.oriented_nms(bev, scores, thresh, keep, valid), reps)
-        pms = cuda_ms(lambda: nms.oriented_nms_plain(bev, scores, thresh, keep, valid), 1)
         b, n = bev.shape[:2]
         ious = nms_iou_count(bev, scores, thresh, got, valid)
         add_bound(r, b * n * 25 + b * keep * 4, float(NMS_OPS_PER_IOU * ious))
@@ -3432,6 +3491,485 @@ def bf16_train_phase(kernels, out_root):
     return report, finish_rows(rows)
 
 
+# Step 15, the rest of stage 1 (cell J): the PointNet++ RPN, the non-fixed
+# NMS path, PointCNN's ids sampling and sorted neighbourhoods, the native
+# point-cloud loader.
+POINTNET_PER_FORWARD = {"fps": 4, "nms": 1}  # and no KNN, KNN prep or XConv launch
+STAGE1_TRAIN_STEPS = 3
+STAGE1_FRAMES = ("000001", "000004")         # the fixture frames of (c)'s evaluation
+# Card against CPU at `rpn_unittest` width (d): the fused XConv kernel and
+# the CPU's plain version differ within the XConv gate a layer; through the
+# stacked layers the features are held as `small_width_agrees` holds boxes.
+STAGE1_SMALL_RTOL = STAGE1_SMALL_ATOL = 1e-3
+STAGE1_OPS = ("query_ball_point", "three_nn", "three_interpolate")
+
+
+def pointnet_rpn_config(name=None):
+    """`rpn_multiclass` with the PointNet++ extractor of the reference's
+    rpn_cars_pointnet.config shape (`rpn_pointnet_layers`)."""
+    from heterofusionrcnn_torch.configs.presets import rpn_multiclass, rpn_pointnet_layers
+
+    cfg = rpn_multiclass(KITTI_DIR)
+    lc = cfg.model_config.layers_config
+    lc.pc_extractor_type = "pointnet"
+    lc.pc_pointnet = rpn_pointnet_layers()
+    if name:
+        cfg.model_config.checkpoint_name = name
+    return cfg
+
+
+def stage1_model(cfg, mode, kernels=None):
+    """A full-width RpnModel of `cfg` in `mode` on the card, eval, with
+    random weights and seeded BatchNorm statistics from SEED."""
+    from heterofusionrcnn_torch.inference import CLUSTER_SIZES
+    from heterofusionrcnn_torch.models.extractors.layers import init_weights
+    from heterofusionrcnn_torch.models.rpn import RpnModel
+
+    model = RpnModel(cfg.model_config, 3, CLUSTER_SIZES, save_rpn_feature=True, mode=mode)
+    return randomize_batchnorm(init_weights(model, SEED), SEED).cuda().eval()
+
+
+def stage1_inputs(cfg, labels=False):
+    """The synthetic seed-SEED batch of 4 on the card; with `labels`, val
+    mode's too: a foreground class for about half the points (more than
+    NUM_FG_POINT a frame, so the resample needs no wrap-fill), box targets
+    and 4 sane GT boxes a frame."""
+    import numpy as np
+    import torch
+
+    from heterofusionrcnn_torch.inference import random_batch
+
+    batch = random_batch(cfg, BATCH, SEED)
+    out = [torch.from_numpy(batch[k]).cuda()
+           for k in ("point_cloud", "image_input", "stereo_calib_p2")]
+    if labels:
+        rng = np.random.default_rng(SEED)
+        p = out[0].shape[1]
+        segs = np.where(rng.random((BATCH, p)) < 0.5, rng.integers(1, 4, (BATCH, p)), 0)
+        regs = np.concatenate([rng.uniform(-30, 30, (BATCH, p, 3)), rng.uniform(1, 4, (BATCH, p, 3)),
+                               rng.uniform(-3, 3, (BATCH, p, 1))], -1)
+        boxes = np.concatenate([rng.uniform(-30, 30, (BATCH, 4, 3)), rng.uniform(1, 4, (BATCH, 4, 3)),
+                                rng.uniform(-3, 3, (BATCH, 4, 1))], -1)
+        out += [torch.from_numpy(a.astype(dt)).cuda()
+                for a, dt in ((segs, np.int32), (regs, np.float32), (boxes, np.float32))]
+    return out
+
+
+def counted(fn, kernels, ops=()):
+    """fn() between zeroing every launch count and reading it, the calls of
+    `ops` recorded. Returns (output, launches, calls)."""
+    import torch
+
+    for kern in kernels.values():
+        kern.launches = 0
+    with recording(ops) as calls:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {k: kern.launches for k, kern in kernels.items()}, calls
+
+
+def forward_timing(fn):
+    """ms (CUDA events, mean of ITERS), the device's busy ms of one profiled
+    call and the busy share."""
+    ms = cuda_ms(fn, ITERS)
+    prof = profile_forward(lambda: fn(), ())
+    return dict(ms=ms, device_ms=prof["device_busy_ms"],
+                busy_share=prof["device_busy_ms"] / ms, top=prof["top"][:8])
+
+
+def check_keeps(out, post, label):
+    """NMS keeps of a forward: valid slots first, score-sorted, the count
+    within `post`, finite boxes."""
+    import torch
+
+    n = out["num_proposals_before_padding"]
+    if not bool(((n >= 1) & (n <= post)).all()):
+        raise AssertionError(f"{label}: keep counts {n.tolist()} outside 1..{post}")
+    for b in range(n.shape[0]):
+        k = int(n[b])
+        s = out["proposal_scores"][b, :k]
+        if not (bool(out["proposal_valid"][b, :k].all()) and not bool(out["proposal_valid"][b, k:].any())
+                and bool((s[1:] <= s[:-1]).all()) and bool(torch.isfinite(out["proposals"][b]).all())):
+            raise AssertionError(f"{label}: frame {b}'s keeps are not valid-first, score-sorted "
+                                 f"and finite")
+    return n.tolist()
+
+
+def check_nms_calls(calls, boxes_per_frame, label):
+    """Each recorded NMS call over `boxes_per_frame` boxes a frame, its keep
+    indices unique within each frame."""
+    import torch
+
+    from heterofusionrcnn_torch.ops import nms
+
+    for a, kw in calls["oriented_nms"]:
+        bev = a[0]
+        if bev.shape[1] != boxes_per_frame:
+            raise AssertionError(f"{label}: an NMS call over {bev.shape[1]} boxes a frame, "
+                                 f"not {boxes_per_frame}")
+        keep, valid = nms.oriented_nms(*a, **kw)
+        for f in range(keep.shape[0]):
+            kept = keep[f][valid[f]]
+            if torch.unique(kept).numel() != kept.numel():
+                raise AssertionError(f"{label}: frame {f} keeps an index twice")
+
+
+def op_device_ms(calls, reps=REPS):
+    """Per op of STAGE1_OPS: calls, ms (CUDA events, mean a call over reps)
+    and device ms (the profiler's device events, a call) of its recorded
+    calls rerun alone."""
+    from heterofusionrcnn_torch.models.extractors import pointnet
+
+    out = {}
+    for op in STAGE1_OPS:
+        fn = getattr(pointnet, op)
+        ms = dev = 0.0
+        for a, kw in calls[op]:
+            ms += cuda_ms(lambda: fn(*a, **kw), reps)
+            dev += sum(d for _, d in profiled(lambda: fn(*a, **kw), reps).values()) / reps
+        out[op] = dict(calls=len(calls[op]), ms=ms, device_ms=dev)
+    return out
+
+
+def pointnet_forward(kernels, report):
+    """Step 15 (a): the PointNet++ RPN in test mode at batch 4. Returns rows."""
+    import torch
+
+    from heterofusionrcnn_torch.models.rpn import rpn_fts_channels
+
+    cfg = pointnet_rpn_config()
+    model = stage1_model(cfg, "test")
+    inputs = stage1_inputs(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out, launches, calls = counted(
+            lambda: model(*inputs), kernels,
+            ("farthest_point_sample", "oriented_nms", "knn_point", "fused_xconv") + STAGE1_OPS)
+    rep = dict(launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    want = dict(POINTNET_PER_FORWARD, knn=0, knn_prep=0, xconv=0, xconv_epilogue=0)
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"PointNet++ RPN forward launches {launches}, want {want}")
+    if expected_launches(calls, ("fps", "nms")) != {"fps": launches["fps"], "nms": launches["nms"],
+                                                    "knn_prep": 0}:
+        raise AssertionError(f"recorded PointNet++ calls do not match its launches {launches}")
+    shapes = [(tuple(a[0].shape), a[1]) for a, _ in calls["farthest_point_sample"]]
+    npoints = [sa.npoint for sa in cfg.model_config.layers_config.pc_pointnet.sa_modules]
+    p = cfg.model_config.input_config.pc_sample_pts
+    if [s[1] for s in shapes] != npoints or shapes[0][0] != (BATCH, p, 3):
+        raise AssertionError(f"PointNet++ FPS calls {shapes}, want {p} -> {npoints}")
+    width = out["rpn_fts"].shape[-1] + out["rpn_img_fts"].shape[-1]
+    if out["rpn_fts"].dtype != torch.float32 or width != rpn_fts_channels(cfg.model_config):
+        raise AssertionError(f"PointNet++ features {out['rpn_fts'].dtype}, width {width}")
+    rep["num_proposals"] = check_keeps(out, cfg.model_config.rpn_config.rpn_test_post_nms_size,
+                                       "PointNet++ RPN")
+    with torch.no_grad():
+        rep.update(forward_timing(lambda: model(*inputs)))
+        rep["ops"] = op_device_ms(calls)
+    rows = {}
+    with torch.no_grad():
+        fps_row(rows, calls, REPS, "_pointnet", sweeps=False, warm_plain=False)
+        nms_row(rows, calls, REPS, "_pointnet", sweeps=False, warm_plain=False)
+    rows["fps_pointnet"]["launches"] = launches["fps"]
+    rows["nms_pointnet"]["launches"] = launches["nms"]
+    print(f"card: {card_line()}; PointNet++ RPN test mode, batch {BATCH}: {rep['ms']:.2f} ms, "
+          f"device {rep['device_ms']:.2f} ms (busy {rep['busy_share']:.3f}), peak "
+          f"{rep['peak_mem_gb']:.2f} GB; launches fps {launches['fps']} nms {launches['nms']}; "
+          + "; ".join(f"{op} {d['calls']} calls {d['ms']:.4f} ms, device {d['device_ms']:.4f} ms"
+                      for op, d in rep["ops"].items()), flush=True)
+    report["pointnet_forward"] = rep
+    del model, out, calls
+    torch.cuda.empty_cache()
+    return rows
+
+
+def nonfixed_forwards(kernels, report, cell_a_ms):
+    """Step 15 (b): `rpn_multiclass` with the non-fixed NMS path, test and
+    val mode, batch 4 (one model: its mode and its NMS switch flipped),
+    beside the fixed path on the same weights. Returns the nms_nonfixed
+    row."""
+    import torch
+
+    from heterofusionrcnn_torch.configs.presets import rpn_multiclass
+    from heterofusionrcnn_torch.models.rpn import NUM_FG_POINT
+
+    cfg = rpn_multiclass(KITTI_DIR)
+    rpn_cfg = cfg.model_config.rpn_config
+    rpn_cfg.rpn_fixed_num_proposal_nms = False
+    p = cfg.model_config.input_config.pc_sample_pts
+    model = stage1_model(cfg, "test")  # holds cfg: rpn_cfg switches its path
+    rep, all_calls, launches_total = {}, {"oriented_nms": []}, 0
+    for mode, post in (("test", rpn_cfg.rpn_test_post_nms_size),
+                       ("val", rpn_cfg.rpn_train_post_nms_size)):
+        model.mode = mode
+        inputs = stage1_inputs(cfg, labels=mode == "val")
+        with torch.no_grad():
+            out, launches, calls = counted(lambda: model(*inputs), kernels, ("oriented_nms",))
+        if launches["nms"] != 1 or len(calls["oriented_nms"]) != 1:
+            raise AssertionError(f"non-fixed {mode} forward launched NMS {launches['nms']} times")
+        check_nms_calls(calls, min(NUM_FG_POINT, p), f"non-fixed {mode}")  # nms_row: bit-exact
+        m = dict(launches=launches, num_proposals=check_keeps(out, post, f"non-fixed {mode}"))
+        if out["rpn_pts"].shape[1] != min(NUM_FG_POINT, p) or out["seg_logits"].shape[1] != p:
+            raise AssertionError(f"non-fixed {mode}: rows {out['rpn_pts'].shape} "
+                                 f"{out['seg_logits'].shape}")
+        if mode == "test":
+            def forward(fixed):
+                rpn_cfg.rpn_fixed_num_proposal_nms = fixed
+                return model(*inputs)
+
+            with torch.no_grad():
+                turns = [cuda_ms(lambda: forward(fixed), ITERS)
+                         for fixed in (True, False, False, True)]
+            rpn_cfg.rpn_fixed_num_proposal_nms = False
+            m.update(ms_fixed_nonfixed_turns=turns, cell_a_ms=cell_a_ms)
+            print(f"RPN test mode, batch {BATCH}, fixed / non-fixed NMS path in turns: "
+                  f"{(turns[0] + turns[3]) / 2:.2f} / {(turns[1] + turns[2]) / 2:.2f} ms (cell A, "
+                  f"the two-stage forward on the fixed path: {cell_a_ms:.2f} ms); keeps "
+                  f"{m['num_proposals']}", flush=True)
+        else:
+            print(f"non-fixed val forward: keeps {m['num_proposals']} of {post}", flush=True)
+        rep[mode] = m
+        all_calls["oriented_nms"] += calls["oriented_nms"]
+        launches_total += launches["nms"]
+        del out
+    del model
+    torch.cuda.empty_cache()
+    rows = {}
+    with torch.no_grad():
+        nms_row(rows, all_calls, REPS, "_nonfixed", sweeps=False, warm_plain=False)
+    rows["nms_nonfixed"]["launches"] = launches_total
+    report["nonfixed"] = rep
+    return rows
+
+
+def fixture_pair(root):
+    """A dataset directory under `root` holding the fixture frames and a
+    split "two" of STAGE1_FRAMES."""
+    data = os.path.join(root, "kitti")
+    os.makedirs(data)
+    os.symlink(os.path.join(KITTI_DIR, "training"), os.path.join(data, "training"))
+    shutil.copy(os.path.join(KITTI_DIR, "train.txt"), os.path.join(data, "train.txt"))
+    with open(os.path.join(data, "two.txt"), "w") as f:
+        f.write("\n".join(STAGE1_FRAMES) + "\n")
+    return data
+
+
+def pointnet_training(kernels, out_root, report):
+    """Step 15 (c): the PointNet++ RPN through `run_training` (batch 2) from
+    a saved config, then `run_evaluation --save_rpn_feature` on 2 frames.
+    Returns the fps_pointnet_train row."""
+    import numpy as np
+    import torch
+
+    from heterofusionrcnn_torch.configs.config import save_config
+    from heterofusionrcnn_torch.experiments import run_evaluation, run_training
+    from heterofusionrcnn_torch.models.rpn import rpn_fts_channels
+    from heterofusionrcnn_torch.runtime.train_state import make_rpn_train_step
+
+    root = os.path.join(out_root, "chip_smoke_stage1")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = pointnet_rpn_config("rpn_pointnet")
+    cfg.dataset_config.dataset_dir = fixture_pair(root)
+    cfg.train_config.max_iterations = STAGE1_TRAIN_STEPS
+    cfg_path = os.path.join(root, "rpn_pointnet.json")
+    save_config(cfg, cfg_path)
+    monitor = StepMonitor(kernels, make_rpn_train_step)
+    with torch.enable_grad(), patched(run_training, "make_rpn_train_step", monitor.factory):
+        state = run_training.main(["--pipeline_config", cfg_path, "--data_split", "train",
+                                   "--output_root", root, "--seed", str(SEED)])
+    if state.step != STAGE1_TRAIN_STEPS or not hasattr(state.model, "pc_pointnet"):
+        raise AssertionError(f"PointNet++ training ended at step {state.step}")
+    check_train_steps(monitor.steps, ("fps",), ("knn", "knn_prep", "xconv", "nms"), "PointNet++")
+    recorded = monitor.steps[TRAIN_RECORDED_STEP]["launches"]
+    calls = monitor.calls
+    if len(calls["farthest_point_sample"]) != recorded["fps"] or recorded["fps"] != 4:
+        raise AssertionError(f"PointNet++ train step: {recorded['fps']} FPS launches")
+    rows = {}
+    with torch.no_grad():
+        fps_row(rows, calls, REPS, "_pointnet_train", sweeps=False, warm_plain=False)
+    rows["fps_pointnet_train"]["launches"] = recorded["fps"]
+    rep = dict(steps=monitor.steps)
+    del state, calls, monitor.calls
+    torch.cuda.empty_cache()
+
+    for kern in kernels.values():
+        kern.launches = 0
+    run_evaluation.main(["--pipeline_config", cfg_path, "--output_root", root,
+                         "--data_split", "two", "--save_rpn_feature"])
+    rep["eval_launches"] = {k: kern.launches for k, kern in kernels.items()}
+    feat_dir = os.path.join(root, "rpn_pointnet", "predictions", "rpn_feature", "two",
+                            str(STAGE1_TRAIN_STEPS))
+    width = rpn_fts_channels(cfg.model_config)
+    files = sorted(os.listdir(feat_dir))
+    if len(files) != len(STAGE1_FRAMES):
+        raise AssertionError(f"PointNet++ handoff files {files}")
+    for name in files:
+        feats = np.load(os.path.join(feat_dir, name))
+        if feats.shape[1] != width + 5 or not np.isfinite(feats).all():
+            raise AssertionError(f"PointNet++ handoff {name}: {feats.shape}, width {width} + 5")
+    if rep["eval_launches"]["fps"] != 4 * len(STAGE1_FRAMES) or not rep["eval_launches"]["nms"]:
+        raise AssertionError(f"PointNet++ evaluation launches {rep['eval_launches']}")
+    rep["feature_width"] = width
+    print(f"PointNet++ training, batch 2: step ms "
+          + " ".join(f"{s['ms']:.2f}" for s in monitor.steps) + "; losses of the last "
+          f"{monitor.steps[-1]['losses']}; handoff of {len(files)} frames, features {width} "
+          f"wide; evaluation launches {rep['eval_launches']}", flush=True)
+    report["pointnet_training"] = rep
+    return rows
+
+
+def small_stage1_agrees(cfg_pointcnn, label, kernels):
+    """Step 15 (d): a PointCNN of `cfg_pointcnn` at `rpn_unittest` width, eval
+    mode, on the card against the CPU (the same weights and inputs; ids
+    sampling takes the same uniforms on both). Returns the report and the
+    recorded card calls (KNN, fused XConv, split epilogues)."""
+    import torch
+
+    from heterofusionrcnn_torch.models.extractors import pointcnn
+    from heterofusionrcnn_torch.models.extractors.layers import init_weights
+    from heterofusionrcnn_torch.ops import sampling
+
+    gen = torch.Generator().manual_seed(SEED)
+    pts = torch.randn((2, 2048, 3), generator=gen) * 10.0
+    fts = torch.rand((2, 2048, 1), generator=gen) - 0.5
+    model = randomize_batchnorm(init_weights(pointcnn.PointCNN(cfg_pointcnn, 1), SEED), SEED).eval()
+    real = sampling.inverse_density_sampling
+
+    def given(points, k, n, generator):
+        """The i-th sampling of a run takes uniforms of seed SEED + i."""
+        u = torch.rand(points.shape[:2], generator=torch.Generator().manual_seed(SEED + len(used)))
+        used.append(u)
+        return real(points, k, n, uniforms=u.to(points.device))
+
+    outs = {}
+    for device in ("cpu", "cuda"):
+        used = []
+        m = model.to(device)
+        with torch.no_grad(), patched(pointcnn, "inverse_density_sampling", given):
+            if device == "cuda":
+                outs[device], launches, calls = counted(
+                    lambda: m(pts.cuda(), fts.cuda(), sampling=gen), kernels,
+                    ("knn_point", "fused_xconv", "xconv_split_epilogue"))
+            else:
+                outs[device] = m(pts, fts, sampling=gen)
+    (gp, gf), (wp, wf) = outs["cuda"], outs["cpu"]
+    if not torch.equal(gp.cpu(), wp):
+        raise AssertionError(f"{label}: the card's output points differ from the CPU's")
+    err = (gf.cpu() - wf).abs()
+    ok = bool((err <= STAGE1_SMALL_ATOL + STAGE1_SMALL_RTOL * wf.abs()).all())
+    if not ok:
+        raise AssertionError(f"{label}: card and CPU features differ by {float(err.max())}")
+    if not (launches["knn"] and launches["xconv"]) or expected_launches(
+            calls, ("knn", "xconv", "xconv_epilogue")) != {
+            k: launches[k] for k in ("knn", "knn_prep", "xconv", "xconv_epilogue")}:
+        raise AssertionError(f"{label}: launches {launches} against the recorded calls")
+    for a, kw in calls["knn_point"]:
+        check_index_exact("knn", a, kw)
+    rep = dict(launches=launches, max_abs_err_card_cpu=float(err.max()), ids_samplings=len(used))
+    print(f"{label} at rpn_unittest width, card against CPU: features within "
+          f"{float(err.max()):.3g}; launches {launches}", flush=True)
+    return rep, calls
+
+
+def small_width_variants(kernels, report):
+    """Step 15 (d): ids sampling and cxyz-sorted neighbourhoods at
+    `rpn_unittest` width. Returns rows knn_ids and xconv_sorted (and
+    xconv_epilogue_sorted where the sorted model splits a layer)."""
+    import copy
+
+    import torch
+
+    from heterofusionrcnn_torch.configs.presets import rpn_unittest
+    from heterofusionrcnn_torch.ops import grouping
+
+    base = rpn_unittest().model_config.layers_config.pc_pointcnn
+    ids_cfg, sorted_cfg = copy.deepcopy(base), copy.deepcopy(base)
+    ids_cfg.sampling = "ids"
+    sorted_cfg.sorting_method = "cxyz"
+    rep = {}
+    rep["ids"], ids_calls = small_stage1_agrees(ids_cfg, "ids-sampling PointCNN", kernels)
+    rep["sorted"], sorted_calls = small_stage1_agrees(sorted_cfg, "cxyz-sorted PointCNN", kernels)
+    sampled = sum(lp.P not in (-1, base.xconv_layers[i - 1].P if i else None)
+                  for i, lp in enumerate(base.xconv_layers))
+    if rep["ids"]["ids_samplings"] != sampled or rep["sorted"]["ids_samplings"]:
+        raise AssertionError(f"ids samplings {rep['ids']['ids_samplings']}, want {sampled}")
+    # The fused XConv took sorted neighbourhoods: each call's idx is its KNN
+    # rows reordered, and at least one row moved.
+    moved = 0
+    for (pts, fts, qrs, idx, w), _ in sorted_calls["fused_xconv"]:
+        k = idx.shape[2]
+        knn = grouping.knn_point(k, pts, qrs)[1]
+        if not torch.equal(idx.sort(-1).values, knn.sort(-1).values):
+            raise AssertionError("a sorted XConv call's neighbourhoods are not its KNN rows")
+        moved += int((idx != knn).any(-1).sum())
+    if not moved:
+        raise AssertionError("no sorted XConv call took a reordered neighbourhood")
+    rep["sorted"]["rows_reordered"] = moved
+    rows = {}
+    with torch.no_grad():
+        knn_rows(rows, ids_calls, REPS, "_ids")
+        xconv_row(rows, sorted_calls, REPS, "_sorted")
+        if sorted_calls["xconv_split_epilogue"]:
+            epilogue_row(rows, sorted_calls, REPS, "_sorted")
+    rows["knn_ids"]["launches"] = rep["ids"]["launches"]["knn"]
+    rows["knn_prep_ids"]["launches"] = rep["ids"]["launches"]["knn_prep"]
+    if not rows["knn_prep_ids"]["calls"]:
+        del rows["knn_prep_ids"]  # every set of this width takes the brute arm
+    rows["xconv_sorted"]["launches"] = rep["sorted"]["launches"]["xconv"]
+    if "xconv_epilogue_sorted" in rows:
+        rows["xconv_epilogue_sorted"]["launches"] = rep["sorted"]["launches"]["xconv_epilogue"]
+    report["small_width"] = rep
+    return rows
+
+
+def native_loader_check(report):
+    """Step 15 (e): the native loader against the numpy path on every
+    fixture frame, on the card's host: points byte-equal, ms a frame each."""
+    from heterofusionrcnn_torch.datasets.kitti import image as image_io
+    from heterofusionrcnn_torch.datasets.kitti import pointcloud
+
+    training = os.path.join(KITTI_DIR, "training")
+    calib_dir, velo_dir = os.path.join(training, "calib"), os.path.join(training, "velodyne")
+    frames = sorted(int(f[:-4]) for f in os.listdir(velo_dir) if f.endswith(".bin"))
+    pointcloud.get_lidar_point_cloud(frames[0], calib_dir, velo_dir, [1242, 375])  # the build
+    times = {"native": [], "numpy": []}
+    for idx in frames:
+        h, w = image_io.read_png(os.path.join(training, "image_2", "%06d.png" % idx)).shape[:2]
+        got = {}
+        for name, fn in (("native", pointcloud.get_lidar_point_cloud),
+                         ("numpy", pointcloud.get_lidar_point_cloud_numpy)):
+            t0 = time.perf_counter()
+            got[name] = fn(idx, calib_dir, velo_dir, [w, h])
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        if got["native"].tobytes() != got["numpy"].tobytes():
+            raise AssertionError(f"frame {idx}: the native loader's points differ from numpy's")
+    rep = {k: dict(ms_per_frame=sum(v) / len(v), ms=v) for k, v in times.items()}
+    rep["frames"] = len(frames)
+    print(f"native point-cloud loader on {len(frames)} fixture frames, host of {card_line()}: "
+          f"{rep['native']['ms_per_frame']:.3f} ms a frame, numpy {rep['numpy']['ms_per_frame']:.3f}"
+          f" ms; points byte-equal", flush=True)
+    report["native_loader"] = rep
+
+
+def stage1_variants_phase(kernels, out_root, cell_a_ms):
+    """Step 15 (module docstring), cell J. Returns the report and the rows."""
+    t_phase = time.perf_counter()
+    report = dict(card=card_line(), part_s={})
+    rows = {}
+    for part, run in (("a", lambda: rows.update(pointnet_forward(kernels, report))),
+                      ("b", lambda: rows.update(nonfixed_forwards(kernels, report, cell_a_ms))),
+                      ("c", lambda: rows.update(pointnet_training(kernels, out_root, report))),
+                      ("d", lambda: rows.update(small_width_variants(kernels, report))),
+                      ("e", lambda: native_loader_check(report))):
+        t0 = time.perf_counter()
+        run()
+        report["part_s"][part] = time.perf_counter() - t0
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"stage-1 variants phase: {report['phase_s']:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f}" for k, v in report["part_s"].items()) + ")", flush=True)
+    return report, finish_rows(rows)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="outputs", help="directory for chip_smoke.json")
@@ -3571,6 +4109,9 @@ def main(argv=None) -> int:
     report["bf16_training"], bf16_train_rows = bf16_train_phase(dict(kernels, **kernels_bf16),
                                                                 args.out)
     rows.update(bf16_train_rows)
+    report["stage1_variants"], stage1_rows = stage1_variants_phase(
+        kernels, args.out, report["fused_ms_per_batch"])
+    rows.update(stage1_rows)
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

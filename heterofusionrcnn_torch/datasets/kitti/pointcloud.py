@@ -2,24 +2,47 @@
 
 Parity with hf/core/obj_utils.get_lidar_point_cloud (:221-279) and the
 depth-stratified sampler in hf/datasets/kitti/kitti_dataset.py:341-365 —
-vectorized numpy, explicit RNG. Copy of
-heterofusionrcnn_tpu/datasets/kitti/pointcloud.py with its numpy path only
-(the JAX package's native C++ loader gives the same points on the KITTI
-fixtures; tests/test_torch_kitti.py holds the two loaders equal).
+vectorized numpy, explicit RNG. Port of
+heterofusionrcnn_tpu/datasets/kitti/pointcloud.py: a frustum-filtered load
+takes the native C++ loader (`native_loader.py`), as the JAX package does
+where its library loads; `get_lidar_point_cloud_numpy` is its plain
+version, which gives the same points byte for byte
+(tests/test_torch_native_loader.py).
 """
 
 from __future__ import annotations
 
+import os
 
 import numpy as np
 
 from heterofusionrcnn_torch.datasets.kitti import calib as calib_io
+from heterofusionrcnn_torch.datasets.kitti.native_loader import load_and_filter_native
 
 
 def get_lidar_point_cloud(
     img_idx: int, calib_dir: str, velo_dir: str, im_size=None
 ) -> np.ndarray:
-    """Velodyne -> rect-frame points, optionally frustum-filtered to the image.
+    """Velodyne -> rect-frame points, optionally frustum-filtered to the
+    image: through the native loader whenever `im_size` is given, else
+    `get_lidar_point_cloud_numpy`.
+
+    Args:
+      im_size: (w, h) or None.
+    Returns:
+      (N, 4) [x, y, z, intensity] in rect cam frame.
+    """
+    if im_size is None:
+        return get_lidar_point_cloud_numpy(img_idx, calib_dir, velo_dir)
+    calib = calib_io.read_calibration(calib_dir, img_idx)
+    return load_and_filter_native(os.path.join(velo_dir, "%06d.bin" % img_idx), calib, im_size)
+
+
+def get_lidar_point_cloud_numpy(
+    img_idx: int, calib_dir: str, velo_dir: str, im_size=None
+) -> np.ndarray:
+    """The plain numpy load: velodyne -> rect-frame points, optionally
+    frustum-filtered to the image.
 
     Args:
       im_size: (w, h) or None.

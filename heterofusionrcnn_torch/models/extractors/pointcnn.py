@@ -16,6 +16,14 @@ with autograd on, the CPU takes the same layer-by-layer path (the JAX
 package's CPU path); on the card that call raises instead of leaving the
 kernel.
 
+With a `sorting_method` ("l2" or "c<permutation of xyz>") an XConv sorts
+each neighbourhood after the dilation (`grouping.sort_neighbor_indices`)
+and both paths, fused and unfused, take the sorted indices. The query
+points of a level come from FPS, from inverse-density sampling ("ids", its
+uniforms from the `sampling` generator: no entry point supplies one, as no
+JAX entry point supplies the flax "sampling" rng) or are the first P
+points ("random").
+
 `dtype` (None: float32; `torch.bfloat16`) is the flax modules' compute
 dtype: every layer computes in it (`layers.py`), the fused op runs its bf16
 form on features cast to bf16 (the JAX `_fused` path's `fts.astype(cd)`),
@@ -38,8 +46,12 @@ from heterofusionrcnn_torch.models.extractors.layers import (
     SeparableConvOverK,
     dropout,
 )
-from heterofusionrcnn_torch.ops.grouping import group_point, knn_point
-from heterofusionrcnn_torch.ops.sampling import farthest_point_sample, gather_point
+from heterofusionrcnn_torch.ops.grouping import group_point, knn_point, sort_neighbor_indices
+from heterofusionrcnn_torch.ops.sampling import (
+    farthest_point_sample,
+    gather_point,
+    inverse_density_sampling,
+)
 from heterofusionrcnn_torch.ops.xconv import (
     XConvWeights,
     fused_xconv,
@@ -57,9 +69,8 @@ class XConv(nn.Module):
                  with_global: bool = False, sorting_method: str = "",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if sorting_method:
-            raise NotImplementedError("sorted XConv neighbourhoods are not ported")
         self.K, self.D, self.C = K, D, C
+        self.sorting_method = sorting_method
         self.with_X_transformation = with_X_transformation
         self.with_global = with_global
         self.dtype = dtype
@@ -162,6 +173,8 @@ class XConv(nn.Module):
         if nn_idx is None:
             _, nn_idx = knn_point(self.K * self.D, pts, qrs)
         idx = nn_idx[:, :, :: self.D] if self.D > 1 else nn_idx
+        if self.sorting_method:
+            idx = sort_neighbor_indices(pts, idx, self.sorting_method)
         wants_grad = torch.is_grad_enabled() and any(
             t.requires_grad for t in (pts, fts, qrs, *self._folded_tensors()) if t is not None)
         if self.training or (wants_grad and not pts.is_cuda):
@@ -190,8 +203,8 @@ class PointCNN(nn.Module):
     def __init__(self, config: PointCNNConfig, in_channels: int,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if config.sampling != "fps":
-            raise NotImplementedError(f"sampling {config.sampling!r} is not ported")
+        if config.sampling not in ("fps", "ids", "random"):
+            raise ValueError(f"unknown sampling {config.sampling}")
         self.config = config
         self.dp_group = None  # the data-parallel group of the fc dropout draws
         dt = dict(dtype=dtype)
@@ -229,8 +242,11 @@ class PointCNN(nn.Module):
         self.out_channels = out_ch[-1]
 
     def forward(self, points: torch.Tensor, features: Optional[torch.Tensor],
-                generator: Optional[torch.Generator] = None):
-        """`generator`: the dropout draws of the fc layers in training."""
+                generator: Optional[torch.Generator] = None,
+                sampling: Optional[torch.Generator] = None):
+        """`generator`: the dropout draws of the fc layers in training;
+        `sampling`: the uniforms of "ids" sampling (the flax "sampling"
+        rng), which it needs in every mode."""
         cfg = self.config
         xconvs = cfg.xconv_layers
         layer_pts = [points]
@@ -238,8 +254,9 @@ class PointCNN(nn.Module):
 
         # KNN cache keyed by tensor identity: the first XConv and the last
         # XDConv query the same full point set. A query set drawn from a
-        # candidate set by FPS takes its rows of that set's same-set KNN
-        # (same candidates, same tie rule) instead of a fresh scan.
+        # candidate set (by FPS, ids or the first P points) takes its rows of
+        # that set's same-set KNN (same candidates, same tie rule) instead of
+        # a fresh scan.
         knn_cache = {}
         subset_of = {}
 
@@ -264,9 +281,17 @@ class PointCNN(nn.Module):
             if lp.P == -1 or (i > 0 and lp.P == xconvs[i - 1].P):
                 qrs = pts
             else:
-                fps_idx = farthest_point_sample(pts, lp.P)
-                qrs = gather_point(pts, fps_idx)
-                subset_of[id(qrs)] = (id(pts), fps_idx)
+                if cfg.sampling == "fps":
+                    sidx = farthest_point_sample(pts, lp.P)
+                elif cfg.sampling == "ids":
+                    if sampling is None:
+                        raise ValueError("ids sampling needs a 'sampling' generator")
+                    sidx = inverse_density_sampling(pts, lp.K, lp.P, sampling)
+                else:  # "random": the first P points
+                    sidx = torch.arange(lp.P, dtype=torch.int32, device=pts.device).expand(
+                        pts.shape[0], lp.P)
+                qrs = pts[:, :lp.P] if cfg.sampling == "random" else gather_point(pts, sidx)
+                subset_of[id(qrs)] = (id(pts), sidx)
             layer_pts.append(qrs)
             nn_idx = cached_knn(pts, qrs, lp.K * lp.D)
             layer_fts.append(getattr(self, f"xconv_{i + 1}")(pts, fts, qrs, nn_idx))

@@ -9,10 +9,12 @@
   - test: the foreground mask from the predicted segmentation, proposals
     with the test sizes.
 
-PointCNN point features and VGG-pyramid image features, the per-point
-image-feature gather, the segmentation head, concat (or mean) fusion, the
-bin-based proposal head and its decode, then per frame: top-k by foreground
-score and oriented NMS (all frames in one kernel launch on the card).
+PointCNN (or PointNet++, `pc_extractor_type` "pointnet", always float32
+as the JAX `PointNet` has no dtype) point features and VGG-pyramid image
+features, the per-point image-feature gather, the segmentation head,
+concat (or mean) fusion, the bin-based proposal head and its decode, then
+per frame: top-k by foreground score and oriented NMS (all frames in one
+kernel launch on the card).
 BatchNorm, dropout and path drop follow the module's `training` flag, as
 the JAX model's `training` argument (whose default is mode == "train").
 Every random draw comes from a generator the caller passes: "dropout" and
@@ -28,8 +30,12 @@ and the saved stage-1 features (`rpn_fts`, `rpn_img_fts`,
 which keep a bf16 feature bf16 under torch's promotion, as JAX's weakly
 typed masks do.
 
-The non-fixed NMS path (`rpn_fixed_num_proposal_nms=False`, the FG
-resample) is not ported.
+With `rpn_fixed_num_proposal_nms` False (JAX rpn.py:236-266, :348-352),
+val and test mode resample NUM_FG_POINT foreground points
+(`foreground_resample_indices`) before the fusion: every row the bin head
+and its targets read follows the resample, the segmentation outputs and
+`seg_logits` keep every point, and NMS takes all resampled points' boxes
+with no pre-NMS cut.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from heterofusionrcnn_torch.models.extractors.img_vgg_pyr import (
 )
 from heterofusionrcnn_torch.models.extractors.layers import DenseBN, dropout
 from heterofusionrcnn_torch.models.extractors.pointcnn import PointCNN
+from heterofusionrcnn_torch.models.extractors.pointnet import PointNet
 from heterofusionrcnn_torch.ops.nms import oriented_nms_boxes_3d
 from heterofusionrcnn_torch.parallel.mesh import all_reduce_sum, rank_and_size
 
@@ -126,14 +133,45 @@ def descending_order(scores: torch.Tensor) -> torch.Tensor:
     return torch.sort(scores, dim=-1, descending=True, stable=True).indices
 
 
+# The foreground resample's size on the non-fixed NMS path (JAX rpn.py:70).
+NUM_FG_POINT = 2048
+
+
+def foreground_resample_indices(mask: torch.Tensor, scores: torch.Tensor,
+                                npoint: int) -> torch.Tensor:
+    """`npoint` indices of each row's True positions (JAX
+    `foreground_resample_indices`): the masked points by descending score,
+    ties to the lower index (a stable order: wrap-filled duplicates tie
+    exactly), a short row wrap-filled by repeating its picks in order, an
+    all-False row index 0 throughout. mask (B, P) bool, scores (B, P) ->
+    (B, npoint) int32."""
+    key = torch.where(mask, scores.float(), torch.full_like(scores, float("-inf"),
+                                                            dtype=torch.float32))
+    idx = descending_order(key)[:, :npoint]
+    count = mask.sum(1, keepdim=True)
+    j = torch.arange(npoint, device=mask.device)[None, :]
+    wrap = torch.where(count > 0, j % count.clamp(min=1), torch.zeros_like(j))
+    return torch.where(j < count, idx, idx.gather(1, wrap)).to(torch.int32)
+
+
+def point_extractor(config: ModelConfig) -> nn.Module:
+    """The RPN's point extractor of `config`: PointCNN (in the config's
+    compute dtype) or PointNet++ (float32)."""
+    lc = config.layers_config
+    if lc.pc_extractor_type == "pointcnn":
+        return PointCNN(lc.pc_pointcnn, _pc_in_channels(config), dtype=compute_dtype(config))
+    if lc.pc_extractor_type == "pointnet":
+        return PointNet(lc.pc_pointnet, _pc_in_channels(config))
+    raise ValueError(f"unknown pc_extractor_type {lc.pc_extractor_type!r}")
+
+
 def rpn_fts_channels(config: ModelConfig) -> int:
     """Width of the per-point features the RPN of `config` hands the RCNN
-    (`save_rpn_feature`): its PointCNN's output channels plus the image
-    features gathered at each point (`vgg_conv1`'s width)."""
-    lc = config.layers_config
+    (`save_rpn_feature`): its point extractor's output channels plus the
+    image features gathered at each point (`vgg_conv1`'s width)."""
     with torch.device("meta"):
-        c_pc = PointCNN(lc.pc_pointcnn, _pc_in_channels(config)).out_channels
-    return c_pc + lc.img_vgg_pyr.vgg_conv1[1]
+        c_pc = point_extractor(config).out_channels
+    return c_pc + config.layers_config.img_vgg_pyr.vgg_conv1[1]
 
 
 def _pc_in_channels(config: ModelConfig) -> int:
@@ -162,10 +200,6 @@ class RpnModel(nn.Module):
         super().__init__()
         lc = config.layers_config
         rpn = config.rpn_config
-        if lc.pc_extractor_type != "pointcnn":
-            raise NotImplementedError("only the PointCNN point extractor is ported")
-        if not rpn.rpn_fixed_num_proposal_nms:
-            raise NotImplementedError("the non-fixed NMS path is not ported")
         if mode not in ("train", "val", "test"):
             raise ValueError(f"unknown mode {mode!r}")
         self.dtype = compute_dtype(config)
@@ -186,10 +220,12 @@ class RpnModel(nn.Module):
                                rpn.rpn_theta_search_range, rpn.rpn_theta_bin_num)
         _, _, nbx, nbz, _, _, nbt = self.bins
         k = num_classes
-        self.pc_pointcnn = PointCNN(lc.pc_pointcnn, _pc_in_channels(config), **dt)
+        # The flax attribute name: pc_pointcnn or pc_pointnet.
+        self.pc_extractor_name = f"pc_{lc.pc_extractor_type}"
+        self.add_module(self.pc_extractor_name, point_extractor(config))
         img_cls = ImgVgg if lc.img_extractor_type == "vgg" else ImgVggPyr
         self.img_vgg_pyr = img_cls(lc.img_vgg_pyr, conv_kernels=conv_kernels, **dt)
-        c_pc = self.pc_pointcnn.out_channels
+        c_pc = getattr(self, self.pc_extractor_name).out_channels
         c_img = lc.img_vgg_pyr.vgg_conv1[1] if img_cls is ImgVggPyr else lc.img_vgg_pyr.vgg_conv4[1]
         self.seg_logits = DenseBN(c_pc, k + 1, use_bn=False, activation=False, **dt)
         c = c_pc + c_img if rpn.rpn_fusion_method == "concat" else c_pc
@@ -205,7 +241,8 @@ class RpnModel(nn.Module):
         """pc_input (B, P, 4), img_input (B, H, W, 3) NHWC, calib_p2 (B, 3, 4);
         in train and val mode label_segs (B, P) (-1 ignore, 0 background,
         1..K), label_regs (B, P, 7) and, for val's IoUs, label_boxes
-        (B, m, 7). `generators`: {"dropout", "path_drop"} in training."""
+        (B, m, 7). `generators`: {"dropout", "path_drop"} in training, and
+        "sampling" for a PointCNN of "ids" sampling in every mode."""
         cfg = self.config
         rpn_cfg = cfg.rpn_config
         training = self.training
@@ -218,10 +255,12 @@ class RpnModel(nn.Module):
 
         pc_pts = pc_input[..., :3]
         pc_intensity = pc_input[..., 3:4]
-        pc_pts_out, pc_fts = self.pc_pointcnn(
-            pc_pts, pc_intensity if rpn_cfg.rpn_use_intensity_feature else None,
-            gens.get("dropout"),
-        )
+        pc_in = pc_intensity if rpn_cfg.rpn_use_intensity_feature else None
+        if self.pc_extractor_name == "pc_pointcnn":
+            pc_pts_out, pc_fts = self.pc_pointcnn(pc_pts, pc_in, gens.get("dropout"),
+                                                  gens.get("sampling"))
+        else:
+            pc_pts_out, pc_fts = self.pc_pointnet(pc_pts, pc_in, gens.get("dropout"))
         img_fts = self.img_vgg_pyr(preprocess_image(img_input))
 
         proj = rect_to_image(pc_pts_out, calib_p2)
@@ -244,6 +283,24 @@ class RpnModel(nn.Module):
             foreground_mask = label_segs > 0
         else:
             foreground_mask = seg_preds > 0
+
+        # The bin head's GT rows; the segmentation's stay full-resolution.
+        enc_label_segs, enc_label_regs = label_segs, label_regs
+        if self.mode in ("val", "test") and not rpn_cfg.rpn_fixed_num_proposal_nms:
+            fg_idx = foreground_resample_indices(foreground_mask, seg_scores,
+                                                 min(NUM_FG_POINT, p)).long()
+
+            def rows(a):
+                if a is None:
+                    return None
+                idx = fg_idx if a.dim() == 2 else fg_idx[..., None].expand(-1, -1, a.shape[-1])
+                return a.gather(1, idx)
+
+            (pc_pts_out, pc_fts, proj_img_fts, pc_intensity, seg_fg_preds, seg_scores,
+             foreground_mask, enc_label_segs, enc_label_regs) = map(rows, (
+                 pc_pts_out, pc_fts, proj_img_fts, pc_intensity, seg_fg_preds, seg_scores,
+                 foreground_mask, enc_label_segs, enc_label_regs))
+            p = fg_idx.shape[1]
 
         proposal_fts, proposal_img_fts, fusion_mean_div = pc_fts, proj_img_fts, 2.0
         p_img, p_pc = cfg.path_drop_probabilities
@@ -281,7 +338,8 @@ class RpnModel(nn.Module):
                 predictions["proposal_iou3d"] = iou3d  # (B, post, m)
                 predictions["proposal_iou2d"] = iou2d
         if self.mode in ("train", "val"):
-            predictions.update(self._targets(fields, pc_pts_out, label_segs, label_regs))
+            predictions.update(self._targets(fields, pc_pts_out, label_segs, enc_label_segs,
+                                             enc_label_regs))
             hits = (seg_preds == label_segs.long()).float()
             if self.dp_group is None:
                 predictions["seg_accuracy"] = hits.mean()
@@ -301,8 +359,9 @@ class RpnModel(nn.Module):
 
     def _proposals(self, fields, pc_pts_out, seg_scores, seg_fg_preds):
         """Decode every point's box of its predicted class, keep the top
-        `pre` by foreground score and run oriented NMS per frame (val mode
-        with the train sizes and threshold, test mode with the test ones)."""
+        `pre` by foreground score (every point on the non-fixed path) and
+        run oriented NMS per frame (val mode with the train sizes and
+        threshold, test mode with the test ones)."""
         rpn_cfg = self.config.rpn_config
         S, DELTA, _, _, R, DELTA_THETA, _ = self.bins
         b, p = seg_scores.shape
@@ -316,6 +375,8 @@ class RpnModel(nn.Module):
         else:
             pre, post = rpn_cfg.rpn_test_pre_nms_size, rpn_cfg.rpn_test_post_nms_size
             thresh = rpn_cfg.rpn_test_nms_iou_thresh
+        if not rpn_cfg.rpn_fixed_num_proposal_nms:
+            pre = p
         top_idx = descending_order(seg_scores)[:, :min(pre, p)]
         top_conf = seg_scores.gather(1, top_idx)
         top_props = proposals.gather(1, top_idx[..., None].expand(-1, -1, 7))
@@ -328,13 +389,15 @@ class RpnModel(nn.Module):
             "num_proposals_before_padding": keep_valid.sum(-1),
         }
 
-    def _targets(self, fields, pc_pts_out, label_segs, label_regs):
-        """GT encodings for `rpn_loss`: the bin targets of each point's GT
-        box under its GT class, and the head's outputs gathered at that
-        class and at the GT bins."""
+    def _targets(self, fields, pc_pts_out, label_segs, enc_label_segs, label_regs):
+        """GT encodings for `rpn_loss`: the segmentation's one-hot targets
+        of every point (`label_segs`), the bin targets of each bin-head
+        row's GT box under its GT class (`enc_label_segs`, `label_regs`:
+        the resampled rows on the non-fixed path), and the head's outputs
+        gathered at that class and at the GT bins."""
         S, DELTA, nbx, nbz, R, DELTA_THETA, nbt = self.bins
         k = self.num_classes
-        label_cls = label_segs.long()  # -1 ignore, 0 background, 1..K
+        label_cls = enc_label_segs.long()  # -1 ignore, 0 background, 1..K
         # Mean size per point for its GT class; background takes the mean of
         # the class means.
         size_table = torch.cat([self.cluster_sizes.mean(0, keepdim=True), self.cluster_sizes])
@@ -350,7 +413,7 @@ class RpnModel(nn.Module):
         bin_x_gt, res_x_gt = at_class(bin_x_gt), at_class(res_x_gt)
         bin_z_gt, res_z_gt = at_class(bin_z_gt), at_class(res_z_gt)
         return {
-            "seg_gt_one_hot": one_hot(label_cls, k + 1),
+            "seg_gt_one_hot": one_hot(label_segs.long(), k + 1),
             "cls_preds": (at_class(fields["bin_x"]), at_class(fields["bin_z"]),
                           at_class(fields["bin_t"])),
             "cls_gts": (one_hot(bin_x_gt, nbx), one_hot(bin_z_gt, nbz),

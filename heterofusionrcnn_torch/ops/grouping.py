@@ -1,12 +1,20 @@
-"""Exact k-nearest neighbours and neighbourhood gathers.
+"""Exact k-nearest neighbours, the ball query and neighbourhood gathers.
 
-Port of heterofusionrcnn_tpu/ops/grouping.py (`knn_point`, `group_point`).
-`knn_point` calls the custom op `hfr::knn`: on CUDA tensors it launches
-the kernels of `csrc/knn.cu`, on CPU tensors it runs `knn_point_plain`.
-Both use the direct squared distance (q - c)^2 rounded term by term and
-order neighbours by (distance, index): the semantics of the TPU kernel and
-of its jnp mirror `pallas_knn._knn_reference_jnp`, not the matmul-expanded
-distance that the JAX package's CPU path uses.
+Port of heterofusionrcnn_tpu/ops/grouping.py (`knn_point`, `group_point`,
+`pairwise_sqdist`, `query_ball_point`, `sort_neighbor_indices`).
+`knn_point` with k <= 16 calls the custom op `hfr::knn`: on CUDA tensors
+it launches the kernels of `csrc/knn.cu`, on CPU tensors it runs
+`knn_point_plain`. Both use the direct squared distance (q - c)^2 rounded
+term by term and order neighbours by (distance, index): the semantics of
+the TPU kernel and of its jnp mirror `pallas_knn._knn_reference_jnp`, not
+the matmul-expanded distance that the JAX package's CPU path uses. With
+k > 16 `knn_point` takes the JAX package's own split (`_knn_point_impl`:
+the Pallas kernel only for k <= 16): the k smallest of the expanded
+distance table, in plain PyTorch on every device.
+
+The ball query and the expanded distance table run in plain PyTorch, as
+their JAX counterparts run in plain XLA. The table's cross term is summed
+from three elementwise products, so no TF32 matmul ever touches it.
 
 On the card the kernel has two arms (`knn_arm`, chosen inside the op): a
 brute scan for small sets, and for large ones a sorted arm that
@@ -48,6 +56,12 @@ KNN_SORTED_MAX_POINTS = 16384  # the prep kernel's largest set (one block sorts 
 
 # Elements of one (B, chunk, N) distance table in the plain version.
 _PLAIN_CHUNK_ELEMS = 1 << 24
+# Largest k of the kernel (JAX `_knn_point_impl`: the Pallas kernel for
+# k <= 16, the expanded-distance top-k beyond).
+KNN_KERNEL_MAX_K = 16
+# Elements of one (B, chunk, N) table of the expanded-distance ops (the JAX
+# package tiles the query axis by 1024 through `lax.map`).
+_TABLE_CHUNK_ELEMS = 1 << 26
 
 
 def knn_arm(n: int, p: int) -> str:
@@ -64,7 +78,9 @@ def knn_point(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor, arm: Optional[st
     """k nearest candidates of each query.
 
     Args:
-      xyz: (B, N, 3) candidates; new_xyz: (B, P, 3) queries; k <= min(16, N).
+      xyz: (B, N, 3) candidates; new_xyz: (B, P, 3) queries; 1 <= k <= N.
+        k <= 16 runs the kernel's op; k > 16 `knn_point_expanded`, as the
+        JAX package does on every backend.
         `new_xyz is xyz` (the same object) lets the sorted arm sort once;
         the op takes that choice as its argument `same_set`, so a traced
         graph keeps it.
@@ -75,11 +91,113 @@ def knn_point(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor, arm: Optional[st
       dists (B, P, k) ascending squared distances, idx (B, P, k) int32.
     """
     n = xyz.shape[1]
-    if not 1 <= k <= min(16, n):
-        raise ValueError(f"knn needs 1 <= k <= min(16, N), got k={k} N={n}")
+    if not 1 <= k <= n:
+        raise ValueError(f"knn needs 1 <= k <= N, got k={k} N={n}")
     if arm not in (None, "brute", "sorted"):
         raise ValueError(f"unknown knn arm {arm!r}")
+    if k > KNN_KERNEL_MAX_K:
+        if arm is not None:
+            raise ValueError(f"knn arm {arm!r} with k={k}: the kernel takes k <= {KNN_KERNEL_MAX_K}")
+        return knn_point_expanded(k, xyz, new_xyz)
     return torch.ops.hfr.knn(xyz, new_xyz, k, new_xyz is xyz, arm)
+
+
+def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., P, 3) x (..., N, 3) -> (..., P, N) squared distances in the
+    matmul-expanded form |a|^2 - 2 a.b + |b|^2, clamped at 0 (JAX
+    `pairwise_sqdist`), float32. The cross term is summed from three
+    elementwise products in float32, never a (TF32) matmul."""
+    aa = (a * a).sum(-1, keepdim=True)
+    bb = (b * b).sum(-1, keepdim=True).transpose(-1, -2)
+    at, bt = a.unsqueeze(-2), b.unsqueeze(-3)
+    cross = (at[..., 0] * bt[..., 0] + at[..., 1] * bt[..., 1]) + at[..., 2] * bt[..., 2]
+    # + 0.0 turns a -0.0 into +0.0, so the bits order as the values.
+    return (aa - 2.0 * cross + bb).clamp(min=0.0) + 0.0
+
+
+def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of each row of the non-negative float32 table d,
+    ascending, the lower index first on ties (`jax.lax.top_k(-d, k)`'s
+    order): (values, int32 indices). One int64 top-k over the keys
+    (bits of d, index), which are unique."""
+    n = d.shape[-1]
+    key = (d.view(torch.int32).long() << 32) | torch.arange(n, device=d.device)
+    top = torch.topk(key, k, dim=-1, largest=False, sorted=True).values
+    idx = (top & 0xFFFFFFFF).to(torch.int32)
+    return (top >> 32).to(torch.int32).view(torch.float32), idx
+
+
+def _query_chunks(b: int, p: int, n: int) -> int:
+    """Queries a chunk of a (B, chunk, N) table of the expanded-distance ops."""
+    return max(1, min(p, _TABLE_CHUNK_ELEMS // max(b * n, 1)))
+
+
+def knn_point_expanded(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """The k nearest candidates by the expanded distance (JAX
+    `_knn_point_impl` off the kernel: `pairwise_sqdist`, then top-k), in
+    query chunks: dists (B, P, k) ascending, idx (B, P, k) int32."""
+    b, n, _ = xyz.shape
+    out = [smallest_k(pairwise_sqdist(q, xyz), k)
+           for q in new_xyz.split(_query_chunks(b, new_xyz.shape[1], n), dim=1)]
+    return torch.cat([d for d, _ in out], dim=1), torch.cat([i for _, i in out], dim=1)
+
+
+def _first_k_true(mask: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Indices of the first k True entries of each row of `mask` (..., N),
+    in index order, and the count of True entries capped at k. Slots past
+    the count repeat the first hit; an all-False row gives 0s. Returns
+    (idx (..., k) int32, cnt (...) int32)."""
+    n = mask.shape[-1]
+    ar = torch.arange(n, dtype=torch.int32, device=mask.device)
+    key = torch.where(mask, ar, torch.full_like(ar, n))
+    idx = torch.topk(key, k, dim=-1, largest=False, sorted=True).values
+    cnt = mask.sum(-1).clamp(max=k).to(torch.int32)
+    slot = torch.arange(k, dtype=torch.int32, device=mask.device)
+    idx = torch.where(slot < cnt[..., None], idx, idx[..., :1])
+    return torch.where(idx >= n, torch.zeros_like(idx), idx), cnt
+
+
+def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """Fixed-radius neighbourhoods (JAX `query_ball_point`): for each query
+    of new_xyz (B, P, 3), the first `nsample` points of xyz (B, N, 3) in
+    index order whose expanded squared distance is below radius^2,
+    underfull balls padded with the first hit, empty ones all 0. In query
+    chunks that bound the (B, chunk, N) table (the same result at any
+    chunk). Returns idx (B, P, nsample) int32, pts_cnt (B, P) int32."""
+    r2 = radius * radius
+    b, n, _ = xyz.shape
+    out = [_first_k_true(pairwise_sqdist(q, xyz) < r2, nsample)
+           for q in new_xyz.split(_query_chunks(b, new_xyz.shape[1], n), dim=1)]
+    return torch.cat([i for i, _ in out], dim=1), torch.cat([c for _, c in out], dim=1)
+
+
+def sort_neighbor_indices(points: torch.Tensor, idx: torch.Tensor,
+                          sorting_method: str) -> torch.Tensor:
+    """Each neighbourhood's indices reordered for the sorted XConv (JAX
+    `sort_neighbor_indices`): "l2" by descending distance from the
+    neighbourhood's centroid, or "c<permutation of xyz>" by descending
+    lexicographic key of the min-max normalised coordinates (scales 100^i,
+    the first neighbour's key pinned to 0). Ties keep the lower slot first
+    (`jax.lax.top_k`'s order). points (B, N, 3), idx (B, P, K) -> (B, P, K)."""
+    nn_pts = group_point(points, idx)  # (B, P, K, 3)
+    if sorting_method.startswith("c"):
+        perm = sorting_method[1:]
+        if "".join(sorted(perm)) != "xyz":
+            raise ValueError(f"unknown sorting method {sorting_method}")
+        mn = nn_pts.amin(dim=2, keepdim=True)
+        mx = nn_pts.amax(dim=2, keepdim=True)
+        normed = (nn_pts - mn) / (mx - mn + 1e-8)
+        scaling = torch.tensor([100.0 ** (3 - perm.find(c)) for c in "xyz"],
+                               dtype=nn_pts.dtype, device=nn_pts.device)
+        key = (normed * scaling).sum(-1)
+        key = torch.cat([torch.zeros_like(key[..., :1]), key[..., 1:]], dim=-1)
+    elif sorting_method == "l2":
+        center = nn_pts.mean(dim=2, keepdim=True)
+        key = torch.linalg.vector_norm(nn_pts - center, dim=-1)
+    else:
+        raise ValueError(f"unknown sorting method {sorting_method}")
+    order = torch.sort(key, dim=-1, descending=True, stable=True).indices
+    return torch.gather(idx, -1, order)
 
 
 @torch.library.custom_op("hfr::knn", mutates_args=(), device_types="cpu")

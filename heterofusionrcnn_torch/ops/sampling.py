@@ -1,7 +1,8 @@
-"""Farthest point sampling and point gathers.
+"""Farthest point sampling, point gathers and the random samplers.
 
 Port of heterofusionrcnn_tpu/ops/sampling.py (`farthest_point_sample`,
-`gather_point`). `farthest_point_sample` calls the custom op
+`gather_point`, `inverse_density_sampling`, `prob_sample`).
+`farthest_point_sample` calls the custom op
 `hfr::farthest_point_sample`: on CUDA tensors it launches the kernel of
 `csrc/fps.cu` (each set on a thread-block cluster whose size `fps_plan`
 picks on the card it runs on), on CPU tensors it runs
@@ -24,6 +25,7 @@ from heterofusionrcnn_torch.ops.dispatch import (
     pointers,
     sm_count,
 )
+from heterofusionrcnn_torch.ops.grouping import knn_point
 
 FPS_KERNEL = CudaKernel(
     "fps.cu", {"hfr_fps": [P, P, I, I, I, I, I], "hfr_fps_clusters": [I, I, I]}, exact=True
@@ -116,6 +118,43 @@ def farthest_point_sample_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         best = dists.amax(dim=1, keepdim=True)
         last = torch.where(dists == best, ar, n).amin(dim=1, keepdim=True)
     return out
+
+
+def inverse_density_sampling(points: torch.Tensor, k: int, sample_num: int,
+                             generator: Optional[torch.Generator] = None,
+                             uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse-density sampling without replacement (JAX
+    `inverse_density_sampling`): each point's log share of the mean squared
+    distance to its k nearest neighbours (a same-set KNN: the kernel on the
+    card) plus Gumbel noise, the top `sample_num`. The noise comes from
+    (B, N) uniforms in [0, 1): `uniforms` if given (a test feeds JAX's
+    `jax.random.uniform` draws), else drawn from `generator`.
+
+    Args:
+      points: (B, N, 3) float32.
+    Returns:
+      (B, sample_num) int32 indices, by descending key, ties to the lower
+      index (`jax.lax.top_k`'s order).
+    """
+    d, _ = knn_point(k, points, points)  # (B, N, k) ascending squared distances
+    avg = d.mean(-1).abs() + 1e-8
+    logp = torch.log(avg / avg.sum(-1, keepdim=True))
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("inverse density sampling needs a generator or its uniforms")
+        uniforms = torch.rand(logp.shape, generator=generator, device=points.device)
+    elif uniforms.shape != logp.shape:
+        raise ValueError(f"uniforms of shape {tuple(uniforms.shape)} for points {tuple(points.shape)}")
+    gumbel = -torch.log(-torch.log(uniforms + 1e-20) + 1e-20)
+    order = torch.sort(logp + gumbel, dim=-1, descending=True, stable=True).indices
+    return order[:, :sample_num].to(torch.int32)
+
+
+def prob_sample(cdf: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF multinomial sampling (JAX `prob_sample`): for each
+    uniform of (B, M) the first index of its row of the inclusive CDF
+    (B, N) whose value is not below it -> (B, M) int32."""
+    return torch.searchsorted(cdf.contiguous(), uniforms.contiguous(), side="left").to(torch.int32)
 
 
 def gather_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
