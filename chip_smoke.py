@@ -282,6 +282,27 @@
    the card's host: byte-equal points, ms a frame each. Each part's
    seconds are printed.
 
+16. The workflow tools (`workflow_phase`, cell K). (a)
+   `tools/torch_run_full_pipeline.py` through its `main(argv)` at full
+   width (`rpn_multiclass` -> `rcnn_multiclass` on the fixtures, 2 + 2
+   iterations, `--num_rois 100`) into --out/chip_smoke_pipeline: each of
+   its CLI calls between zeroing and reading every launch count, summed
+   per stage (RPN training: KNN, prep, FPS, no XConv or NMS; the handoff:
+   KNN, prep, FPS, XConv, NMS; RCNN training: KNN, FPS only; the RCNN's
+   evaluation: KNN, FPS, XConv, NMS, no prep; no stage a switched or bf16
+   kernel), the split epilogue launched, each stage's seconds printed; the
+   first call of each kernel's op recorded and held against its plain
+   version (rows knn_pipeline, knn_prep_pipeline, fps_pipeline,
+   xconv_pipeline, xconv_epilogue_pipeline, nms_pipeline, each with the
+   pipeline's launches); every handoff proposal and final prediction file
+   through `utils.format_checker`, the feature files' width, both AP
+   summaries, both final checkpoints loaded into the port's models. (b)
+   `tools/torch_run_eval_sweep.py` over (a)'s RCNN checkpoints in a fresh
+   root: every step once, nothing on a second run. (c)
+   `tools/torch_gen_label_segs.py` (4 spawned workers) and
+   `tools/torch_gen_label_clusters.py` on the fixture train split, ms a
+   frame. Each part's seconds are printed.
+
 Prints a {"kernels": [...]} JSON line, then the result as its last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 CUDA is unavailable, the package is missing or any check fails. Details go
@@ -391,14 +412,17 @@ def plain_ms_and_result(fn, warm: bool):
 
 
 class Recorder:
-    """Wraps an op function and keeps the arguments of every call."""
+    """Wraps an op function and keeps the arguments of every call (of the
+    first `limit` calls, where given)."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, limit=None):
         self.fn = fn
+        self.limit = limit
         self.calls = []
 
     def __call__(self, *args, **kwargs):
-        self.calls.append((args, kwargs))
+        if self.limit is None or len(self.calls) < self.limit:
+            self.calls.append((args, kwargs))
         return self.fn(*args, **kwargs)
 
 
@@ -420,9 +444,10 @@ def randomize_batchnorm(module, seed):
 
 
 @contextlib.contextmanager
-def recording(ops=tuple(KERNEL_OPS.values())):
+def recording(ops=tuple(KERNEL_OPS.values()), limit=None):
     """Wraps the kernel ops named in `ops` where the models call them;
-    yields {op: [(args, kwargs), ...]}, one record per call."""
+    yields {op: [(args, kwargs), ...]}, one record per call (the first
+    `limit` calls of each op, where given)."""
     from heterofusionrcnn_torch.models.extractors import layers, pointcnn, pointnet
     from heterofusionrcnn_torch.ops import cropping, nms, sampling, xconv
 
@@ -436,7 +461,7 @@ def recording(ops=tuple(KERNEL_OPS.values())):
              "conv3x3_affine_relu": (layers,), "convtranspose3x3_affine_relu": (layers,),
              "query_ball_point": (pointnet,), "three_nn": (pointnet,),
              "three_interpolate": (pointnet,)}
-    recs = {op: Recorder(getattr(where[op][0], op)) for op in ops}
+    recs = {op: Recorder(getattr(where[op][0], op), limit) for op in ops}
     for op, rec in recs.items():
         for mod in where[op]:
             setattr(mod, op, rec)
@@ -3970,6 +3995,229 @@ def stage1_variants_phase(kernels, out_root, cell_a_ms):
     return report, finish_rows(rows)
 
 
+# Step 16, cell K: the workflow tools. (a) tools/torch_run_full_pipeline.py
+# in process at full width, each of its four stages counted by kernel (the
+# counts zeroed before each CLI call and read after it), the first call of
+# each kernel's op recorded and held against its plain version (rows
+# *_pipeline); (b) tools/torch_run_eval_sweep.py over (a)'s RCNN
+# checkpoints, twice; (c) the label tools on the fixture train split.
+PIPELINE_CONFIGS = ("rpn_multiclass", "rcnn_multiclass")
+PIPELINE_ARGS = ["--dataset_dir", KITTI_DIR, "--rpn_iterations", "2", "--rcnn_iterations", "2",
+                 "--num_rois", "100"]
+PIPELINE_OPS = ("knn_point", "farthest_point_sample", "fused_xconv", "xconv_split_epilogue",
+                "oriented_nms")
+# The kernels each stage must launch and those it must not (besides the
+# switched and bf16 kernels, which no stage launches).
+PIPELINE_STAGE_KERNELS = {
+    "rpn_train": (("knn", "knn_prep", "fps"), ("xconv", "xconv_epilogue", "nms")),
+    "rpn_handoff": (("knn", "knn_prep", "fps", "xconv", "nms"), ()),
+    "rcnn_train": (("knn", "fps"), ("knn_prep", "xconv", "xconv_epilogue", "nms")),
+    "rcnn_eval": (("knn", "fps", "xconv", "nms"), ("knn_prep",)),
+}
+# The CLI calls of the pipeline, in order, and the stage of each.
+PIPELINE_CALLS = ("rpn_train", "rpn_handoff", "rpn_handoff", "rcnn_train", "rcnn_eval")
+
+
+def pipeline_run(kernels, out_root, report):
+    """(a): the pipeline, counted per stage; returns its summary and the
+    recorded calls."""
+    import numpy as np
+    import torch
+
+    from heterofusionrcnn_torch.experiments import common, run_evaluation, run_training
+    from heterofusionrcnn_torch.models.rpn import rpn_fts_channels
+    from heterofusionrcnn_torch.runtime.checkpoint import CheckpointManager
+    from heterofusionrcnn_torch.utils import format_checker
+    from tools import torch_run_full_pipeline
+
+    rpn_name, rcnn_name = PIPELINE_CONFIGS
+    root = os.path.join(out_root, "chip_smoke_pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    per_call = []
+
+    def counted_cli(fn):
+        def cli(argv=None):
+            for kern in kernels.values():
+                kern.launches = 0
+            out = fn(argv)
+            torch.cuda.synchronize()
+            per_call.append({k: kern.launches for k, kern in kernels.items()})
+            return out
+        return cli
+
+    with patched(run_training, "main", counted_cli(run_training.main)), \
+            patched(run_evaluation, "main", counted_cli(run_evaluation.main)), \
+            recording(PIPELINE_OPS, limit=1) as first:
+        summary = torch_run_full_pipeline.main(
+            ["--rpn_config", rpn_name, "--rcnn_config", rcnn_name, "--output_root", root]
+            + PIPELINE_ARGS)
+    if len(per_call) != len(PIPELINE_CALLS):
+        raise AssertionError(f"the pipeline made {len(per_call)} CLI calls")
+    launches = {stage: {k: 0 for k in kernels} for stage in PIPELINE_STAGE_KERNELS}
+    for stage, counts in zip(PIPELINE_CALLS, per_call):
+        for k, v in counts.items():
+            launches[stage][k] += v
+    for stage, (need, never) in PIPELINE_STAGE_KERNELS.items():
+        got = launches[stage]
+        absent = [k for k in need if not got[k]]
+        wrong = [k for k, v in got.items() if v and (k in never or k not in SLICE1)]
+        if absent or wrong:
+            raise AssertionError(f"pipeline stage {stage}: launches {got} (missing {absent}, "
+                                 f"unexpected {wrong})")
+    total = {k: sum(launches[s][k] for s in launches) for k in SLICE1}
+    if not total["xconv_epilogue"]:
+        raise AssertionError(f"the pipeline launched no split epilogue: {total}")
+    report.update(pipeline=summary, pipeline_launches=launches, pipeline_total_launches=total)
+    for stage, secs in summary["stage_s"].items():
+        print(f"pipeline stage {stage}: {secs:.1f} s, launches "
+              + " ".join(f"{k}={v}" for k, v in launches[stage].items() if k in SLICE1),
+              flush=True)
+
+    # Every handoff file and final prediction file in its format; the AP
+    # summaries written; both final checkpoints load into the models.
+    rpn_step, rcnn_step = summary["rpn_step"], summary["rcnn_step"]
+    pred = os.path.join(root, rpn_name, "predictions")
+    # Points, intensity, foreground flag and the stage-1 features.
+    width = rpn_fts_channels(common.resolve_config(rpn_name).model_config)
+    files = 0
+    for split in ("train", "val"):
+        dirs = torch_run_full_pipeline.handoff_dirs(root, rpn_name, split, rpn_step)
+        names = sorted(os.listdir(dirs[0]))
+        if not names or sorted(os.listdir(dirs[1])) != names:
+            raise AssertionError(f"handoff of {split}: {names}")
+        for n in names:
+            format_checker.check_proposal_file_format(np.loadtxt(os.path.join(dirs[0], n),
+                                                                 ndmin=2))
+            feats = np.load(os.path.join(dirs[2], n.replace(".txt", ".npy")))
+            if feats.shape[1] != 5 + width or not np.isfinite(feats).all():
+                raise AssertionError(f"handoff features of {split}/{n}: {feats.shape}")
+            files += 1
+    final = os.path.join(root, rcnn_name, "predictions", "final_predictions_and_scores", "val",
+                         str(rcnn_step))
+    finals = sorted(os.listdir(final))
+    if len(finals) != len(sorted(os.listdir(os.path.join(pred, "proposals_and_scores", "val",
+                                                          str(rpn_step))))):
+        raise AssertionError(f"final predictions {finals}")
+    for n in finals:
+        format_checker.check_final_prediction_file_format(np.loadtxt(os.path.join(final, n),
+                                                                     ndmin=2))
+    kitti = os.path.join(root, rcnn_name, "predictions", "kitti_native_eval", "0.1",
+                         str(rcnn_step))
+    for path in ("ap_summary.json", "results_05_iou/ap_summary.json"):
+        with open(os.path.join(kitti, path)) as f:
+            if "car_detection_3d" not in json.load(f):
+                raise AssertionError(f"{path} has no car AP")
+    for name in PIPELINE_CONFIGS:
+        cfg = common.resolve_config(name, KITTI_DIR)
+        model, _ = common.build_model(cfg, common.build_dataset(cfg, "val", "val"), "val")
+        model.load_state_dict(CheckpointManager(os.path.join(root, name, "checkpoints"))
+                              .restore_raw()["state_dict"])
+    report.update(handoff_files=files, final_files=len(finals))
+    print(f"pipeline: RPN step {rpn_step}, RCNN step {rcnn_step}; {files} handoff frames and "
+          f"{len(finals)} final prediction files in their formats; both checkpoints load; "
+          f"AP {summary['ap'].get('car_detection_3d')}", flush=True)
+    return summary, first
+
+
+def sweep_run(summary, out_root, report):
+    """(b): the sweep over (a)'s RCNN checkpoints in a fresh root: every
+    step once, nothing on a second run."""
+    from heterofusionrcnn_torch.runtime.checkpoint import CheckpointManager
+    from tools import torch_run_eval_sweep, torch_run_full_pipeline
+
+    rpn_name, rcnn_name = PIPELINE_CONFIGS
+    root = os.path.join(out_root, "chip_smoke_pipeline")
+    ckpts = os.path.abspath(os.path.join(root, rcnn_name, "checkpoints"))
+    sweep_root = os.path.join(out_root, "chip_smoke_sweep")
+    shutil.rmtree(sweep_root, ignore_errors=True)
+    os.makedirs(os.path.join(sweep_root, rcnn_name))
+    os.symlink(ckpts, os.path.join(sweep_root, rcnn_name, "checkpoints"))
+    dirs = torch_run_full_pipeline.handoff_dirs(root, rpn_name, "val", summary["rpn_step"])
+    argv = ["--pipeline_config", rcnn_name, "--dataset_dir", KITTI_DIR, "--output_root",
+            sweep_root, "--proposal_dir", dirs[0], "--proposal_iou_dir", dirs[1],
+            "--rpn_feature_dir", dirs[2]]
+    t0 = time.perf_counter()
+    first = torch_run_eval_sweep.main(argv)
+    report["sweep_s"] = time.perf_counter() - t0
+    again = torch_run_eval_sweep.main(argv)
+    steps = CheckpointManager(ckpts).all_steps()
+    if sorted(s_ for s_, _ in first) != steps or again:
+        raise AssertionError(f"the sweep evaluated {first}, then {again}, of steps {steps}")
+    report["sweep"] = first
+    print(f"sweep: steps {steps} evaluated once each in {report['sweep_s']:.1f} s, none on the "
+          f"rerun", flush=True)
+
+
+def label_tools_run(out_root, report):
+    """(c): both label tools on the fixture train split, ms a frame (wall
+    clock of the tool, its process pool's start included)."""
+    import numpy as np
+
+    from tools import torch_gen_label_clusters, torch_gen_label_segs
+
+    with open(os.path.join(KITTI_DIR, "train.txt")) as f:
+        names = f.read().split()
+    seg_dir = os.path.join(out_root, "chip_smoke_label_segs")
+    shutil.rmtree(seg_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    fg = torch_gen_label_segs.main(["--dataset_dir", KITTI_DIR, "--data_split", "train",
+                                    "--out_dir", seg_dir, "--workers", "4"])
+    seg_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+    if sorted(fg) != sorted(names) or not sum(fg.values()):
+        raise AssertionError(f"label segs: {fg}")
+    for n in names:
+        rows = np.load(os.path.join(seg_dir, n + ".npy"))
+        if rows.ndim != 2 or rows.shape[1] != 8 or not np.isfinite(rows).all():
+            raise AssertionError(f"label segs of {n}: {rows.shape}")
+    cache = os.path.join(out_root, "chip_smoke_label_clusters")
+    shutil.rmtree(cache, ignore_errors=True)
+    t0 = time.perf_counter()
+    clusters, stds = torch_gen_label_clusters.main(["--dataset_dir", KITTI_DIR, "--cluster_split",
+                                                    "train", "--cache_dir", cache])
+    cluster_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+    if not all(np.isfinite(c).all() and np.isfinite(s_).all() for c, s_ in zip(clusters, stds)):
+        raise AssertionError("label clusters not finite")
+    report.update(label_segs_ms_per_frame=seg_ms, label_clusters_ms_per_frame=cluster_ms,
+                  label_segs_fg_points=fg)
+    print(f"label tools on {len(names)} train frames: segs {seg_ms:.1f} ms a frame (4 spawned "
+          f"workers, their start included), clusters {cluster_ms:.2f} ms a frame", flush=True)
+
+
+def workflow_phase(kernels, out_root):
+    """Step 16 (module docstring), cell K. Returns the report and the rows."""
+    import torch
+
+    t_phase = time.perf_counter()
+    report = dict(card=card_line(), part_s={})
+    t0 = time.perf_counter()
+    summary, first = pipeline_run(kernels, out_root, report)
+    report["part_s"]["a"] = time.perf_counter() - t0
+    rows = {}
+    with torch.no_grad():
+        knn_rows(rows, first, REPS, "_pipeline")
+        fps_row(rows, first, REPS, "_pipeline", sweeps=False, warm_plain=False)
+        xconv_row(rows, first, REPS, "_pipeline")
+        epilogue_row(rows, first, REPS, "_pipeline")
+        nms_row(rows, first, REPS, "_pipeline", sweeps=False, warm_plain=False)
+    del first
+    total = report["pipeline_total_launches"]
+    for name in SLICE1:
+        rows[name + "_pipeline"]["launches"] = total[name]
+    if not rows["knn_pipeline"]["sorted_pairs"]:
+        del rows["knn_prep_pipeline"]  # the recorded KNN call took the brute arm
+    report["part_s"]["a_rows"] = time.perf_counter() - t0 - report["part_s"]["a"]
+    for part, run in (("b", lambda: sweep_run(summary, out_root, report)),
+                      ("c", lambda: label_tools_run(out_root, report))):
+        t0 = time.perf_counter()
+        run()
+        report["part_s"][part] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"workflow phase: {report['phase_s']:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f}" for k, v in report["part_s"].items()) + ")", flush=True)
+    return report, finish_rows(rows)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="outputs", help="directory for chip_smoke.json")
@@ -4112,6 +4360,8 @@ def main(argv=None) -> int:
     report["stage1_variants"], stage1_rows = stage1_variants_phase(
         kernels, args.out, report["fused_ms_per_batch"])
     rows.update(stage1_rows)
+    report["workflow"], workflow_rows = workflow_phase(dict(kernels, **kernels_bf16), args.out)
+    rows.update(workflow_rows)
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -63,6 +63,22 @@ def boxes_3d_to_bev(boxes_3d: torch.Tensor) -> torch.Tensor:
     )
 
 
+def bev_box_corners(bev_boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 5) BEV boxes -> (..., 4, 2) oriented rectangle corners: the
+    axis-aligned corners [(x1, z1), (x2, z1), (x2, z2), (x1, z2)] rotated
+    about the centre as the 3D corners are (x' = x cos + z sin,
+    z' = -x sin + z cos)."""
+    x1, z1, x2, z2, ry = (bev_boxes[..., i] for i in range(5))
+    cx = 0.5 * (x1 + x2)
+    cz = 0.5 * (z1 + z2)
+    xs = torch.stack([x1, x2, x2, x1], dim=-1) - cx[..., None]
+    zs = torch.stack([z1, z1, z2, z2], dim=-1) - cz[..., None]
+    c = torch.cos(ry)[..., None]
+    s = torch.sin(ry)[..., None]
+    return torch.stack([xs * c + zs * s + cx[..., None], -xs * s + zs * c + cz[..., None]],
+                       dim=-1)
+
+
 def points_in_box_3d(
     points: torch.Tensor, corners: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:
@@ -90,6 +106,18 @@ def canonical_transform(points: torch.Tensor, boxes_3d: torch.Tensor) -> torch.T
     return torch.einsum(
         "...nc,...cd->...nd", shifted, rotation_y(-boxes_3d[..., 6])
     )
+
+
+def canonical_untransform(points: torch.Tensor, boxes_3d: torch.Tensor) -> torch.Tensor:
+    """The inverse of `canonical_transform`: rotate by ry, then translate by
+    the centre."""
+    rotated = torch.einsum("...nc,...cd->...nd", points, rotation_y(boxes_3d[..., 6]))
+    return rotated + boxes_3d[..., None, 0:3]
+
+
+def box_3d_volume(boxes_3d: torch.Tensor) -> torch.Tensor:
+    """l * w * h."""
+    return boxes_3d[..., 3] * boxes_3d[..., 4] * boxes_3d[..., 5]
 
 
 def expand_box_3d(boxes_3d: torch.Tensor, context: float) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Camera projection (PyTorch port of heterofusionrcnn_tpu/core/projection.py:
-`rect_to_image`, `project_boxes_to_image_space`, `boxes_2d_to_yxyx`)."""
+"""Camera projection (PyTorch port of heterofusionrcnn_tpu/core/projection.py):
+boxes and anchors into the image, anchors onto the BEV map."""
 
 from __future__ import annotations
 
@@ -30,6 +30,46 @@ def project_boxes_to_image_space(
     boxes_2d = torch.stack([x1, y1, x2, y2], dim=-1)
     scale = boxes_2d.new_tensor([image_w, image_h, image_w, image_h])
     return boxes_2d, boxes_2d / scale
+
+
+def project_anchors_to_bev(anchors: torch.Tensor, bev_extents):
+    """(N, 6) anchors [x, y, z, dim_x, dim_y, dim_z] -> their (N, 4)
+    [x1, z1, x2, z2] footprints on the BEV map whose xz extents are
+    ((min_x, max_x), (min_z, max_z)), and the same as a share of the map.
+    The map's origin is its top-left corner: z is flipped, and both axes
+    start at the extent's minimum."""
+    (x_min, x_max), (z_min, z_max) = (
+        (bev_extents[0][0], bev_extents[0][1]),
+        (bev_extents[1][0], bev_extents[1][1]),
+    )
+    x, z = anchors[:, 0], anchors[:, 2]
+    half_x, half_z = anchors[:, 3] / 2.0, anchors[:, 5] / 2.0
+    corners = torch.stack([x - half_x, z_max - (z + half_z), x + half_x, z_max - (z - half_z)],
+                          dim=1)
+    corners = corners - corners.new_tensor([x_min, z_min, x_min, z_min])
+    ranges = corners.new_tensor([x_max - x_min, z_max - z_min, x_max - x_min, z_max - z_min])
+    return corners, corners / ranges
+
+
+def project_anchors_to_image_space(anchors: torch.Tensor, calib_p2: torch.Tensor, image_shape):
+    """(N, 6) anchors -> (N, 4) [x1, y1, x2, y2] image boxes around their 8
+    projected axis-aligned corners, and the same divided by the image's
+    [w, h] (`image_shape` is (h, w)). Not clipped, as the reference's anchor
+    variant is not."""
+    x, y, z = anchors[:, 0], anchors[:, 1], anchors[:, 2]
+    hx, dy, hz = anchors[:, 3] / 2.0, anchors[:, 4], anchors[:, 5] / 2.0
+    sx = anchors.new_tensor([1, 1, -1, -1, 1, 1, -1, -1])
+    sz = anchors.new_tensor([1, -1, -1, 1, 1, -1, -1, 1])
+    top = anchors.new_tensor([0, 0, 0, 0, 1, 1, 1, 1])
+    corners = torch.stack([x[:, None] + hx[:, None] * sx, y[:, None] - dy[:, None] * top,
+                           z[:, None] + hz[:, None] * sz], dim=-1)
+    uv = rect_to_image(corners.reshape(1, -1, 3),
+                       torch.as_tensor(calib_p2, dtype=anchors.dtype,
+                                       device=anchors.device)[None]).reshape(-1, 8, 2)
+    box = torch.stack([uv[..., 0].amin(1), uv[..., 1].amin(1), uv[..., 0].amax(1),
+                       uv[..., 1].amax(1)], dim=1)
+    h, w = image_shape[0], image_shape[1]
+    return box, box / box.new_tensor([w, h, w, h])
 
 
 def boxes_2d_to_yxyx(boxes_2d_norm: torch.Tensor) -> torch.Tensor:

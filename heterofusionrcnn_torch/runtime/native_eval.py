@@ -1,16 +1,22 @@
 """KITTI AP evaluation through the repo's native C++ evaluator (parity with
-heterofusionrcnn_tpu/runtime/native_eval.py `run_kitti_native_eval`).
+heterofusionrcnn_tpu/runtime/native_eval.py `run_kitti_native_eval` and
+`run_kitti_native_eval_async`).
 
 The evaluator's source, `native/kitti_eval/kitti_eval.cpp`, is shared with
 the JAX package. It is compiled here with `g++` at first use into
 `runtime/_build/` (listed in `.gitignore`), under a name that hashes the
 source, so an edited source rebuilds; a binary committed beside the source
 is not used.
+
+`run_kitti_native_eval_async` runs the evaluator from a child process
+started by `spawn`: this module imports only the standard library, so the
+child starts cheaply and never inherits the parent's CUDA context.
 """
 
 from __future__ import annotations
 
 import hashlib
+import multiprocessing
 import os
 import re
 import shutil
@@ -55,3 +61,15 @@ def run_kitti_native_eval(gt_dir: str, det_dir: str, out_dir: Optional[str] = No
         if m:
             aps[m.group(1)] = tuple(float(m.group(i)) for i in (2, 3, 4))
     return aps
+
+
+def run_kitti_native_eval_async(gt_dir: str, det_dir: str,
+                                out_dir: Optional[str] = None) -> multiprocessing.Process:
+    """`run_kitti_native_eval` in a started child process (spawned), which
+    writes the evaluator's files; returns the process to join. The binary
+    is built here first, so that children never compile it at once."""
+    ensure_built()
+    proc = multiprocessing.get_context("spawn").Process(
+        target=run_kitti_native_eval, args=(gt_dir, det_dir, out_dir))
+    proc.start()
+    return proc

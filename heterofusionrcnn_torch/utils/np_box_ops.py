@@ -1,12 +1,11 @@
 """Host-side numpy box geometry for the input pipeline and the KITTI writer.
 
-Copy of the parts of heterofusionrcnn_tpu/utils/np_box_ops.py that the
-port's data layer and writer use: `box_3d_to_corners` and `points_in_box`
-(the reference's box_8c_encoder.np_box_3d_to_box_8co and
-obj_utils.is_point_inside), and the 3D / BEV IoU of box pairs that the RCNN
+Copy of heterofusionrcnn_tpu/utils/np_box_ops.py: `box_3d_to_corners` and
+`points_in_box` (the reference's box_8c_encoder.np_box_3d_to_box_8co and
+obj_utils.is_point_inside), the 3D / BEV IoU of box pairs that the RCNN
 RoI sampling uses, one pair (`box_3d_iou_pair`) or many at once
 (`box_3d_iou_pairs`), copied as they are: the sampled mini-batches depend
-on these values bit for bit.
+on these values bit for bit; and `indices_to_dense_vector`.
 """
 
 from __future__ import annotations
@@ -207,3 +206,13 @@ def points_in_box(points: np.ndarray, box_3d: np.ndarray, eps: float = 1e-6):
         return (proj >= -eps) & (proj <= sq + eps)
 
     return interval(u) & interval(v) & interval(w)
+
+
+def indices_to_dense_vector(
+    indices, size, indices_value=1.0, default_value=0.0, dtype=np.float32
+):
+    """A dense vector of `size` holding `indices_value` at `indices` and
+    `default_value` elsewhere."""
+    out = np.full(int(size), default_value, dtype=dtype)
+    out[np.asarray(indices, np.int64)] = indices_value
+    return out

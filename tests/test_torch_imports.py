@@ -1,7 +1,9 @@
-"""The port stands alone: no file of `heterofusionrcnn_torch/` and not
-`chip_smoke.py` imports jax, flax or the JAX package, nor OpenCV or PIL,
-which the card's machine lacks (checked on the AST of every file, so an
-import inside a function counts too)."""
+"""The port stands alone: no file of `heterofusionrcnn_torch/`, not
+`chip_smoke.py` and no workflow tool of the port (`tools/torch_*.py`)
+imports jax, flax or the JAX package, nor OpenCV or PIL, which the card's
+machine lacks (checked on the AST of every file, so an import inside a
+function counts too). `tools/convert_orbax_checkpoint.py`, which reads JAX
+checkpoints, is the one tool that imports both packages."""
 
 from __future__ import annotations
 
@@ -12,7 +14,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "heterofusionrcnn_tpu", "cv2", "PIL")
-FILES = sorted((ROOT / "heterofusionrcnn_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+TOOLS = sorted((ROOT / "tools").glob("torch_*.py"))
+FILES = (sorted((ROOT / "heterofusionrcnn_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + TOOLS)
 
 
 def _imported_roots(path: Path):
@@ -30,6 +34,7 @@ def _imported_roots(path: Path):
 
 def test_port_has_files():
     assert len(FILES) > 15
+    assert len(TOOLS) == 5
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
