@@ -205,21 +205,29 @@
    in a child process, against the same two steps with no group in this
    process, from the same weights and generators. (b) The same two steps
    on two gloo ranks sharing the card, one frame a rank, against this
-   process's steps at batch 2; then two `rcnn_unittest` steps (the
-   synthetic handoff of tests/rcnn_fixtures.py, a positive RoI) the same
-   way. Each step of the ranks starts from the one-process state before
-   it, and is held as `params_agree` holds a step: metrics within
+   process's steps at batch 2 in the ranks' summation order
+   (`frames_as_ranks`: every convolution frame by frame, so that cuDNN
+   picks the ranks' batch-1 algorithms, and BatchNorm's moments from
+   per-frame sums added as the all-reduce adds them); then two
+   `rcnn_unittest` steps (the synthetic handoff of tests/rcnn_fixtures.py,
+   a positive RoI) against plain steps. Each step of the ranks starts from
+   the one-process state before it, and is held as `params_agree` holds a
+   step: metrics within
    LOSS_TOL, the step's gradients (from Adam's first moment) and its
    parameters, statistics and EMA within PARAM_TOL, widened by 2 x lr where
    the two gradients agree only within the absolute part; the RCNN's
    gradients as `grads_agree` holds them, and the full-width RPN's
    image-branch gradients at two ranks within DP_IMAGE_GRAD_SHARE of the
-   tensor's largest |element|, beside the measured float32 resolution
-   printed before (`frame_swap_resolution`: one process, its two frames
-   swapped). Every rank counts its launches a step (KNN, its sorted-arm
-   prep and FPS at full width; KNN and FPS in the small RCNN, whose sets
-   take the brute arm) and holds one KNN and one FPS call of its second
-   step bit-exact against the plain version. Prints each rank's step ms,
+   tensor's largest |element|. Printed beside it: the same one-process
+   steps from the same states at batch 2, and with only the convolutions
+   frame by frame, against the steps in the ranks' order (the largest
+   |difference| of a gradient over its largest |element|, per step, in the
+   image branch and elsewhere, `grad_shares`), and each rank's differences
+   from the steps in its order and at batch 2. Every rank counts its
+   launches a step (KNN, its sorted-arm prep and FPS at full width; KNN
+   and FPS in the small RCNN, whose sets take the brute arm) and holds one
+   KNN and one FPS call of its second step bit-exact against the plain
+   version. Prints each rank's step ms,
    the all-reduces of a step (count and bytes) and the gradient all-reduce
    alone (its bytes, ms and share of the second step) beside the card's
    name and power limit; ranks that share one card say nothing of
@@ -302,6 +310,28 @@
    `tools/torch_gen_label_segs.py` (4 spawned workers) and
    `tools/torch_gen_label_clusters.py` on the fixture train split, ms a
    frame. Each part's seconds are printed.
+17. Batch-sharded serving (`serve_phase`, cell L): step 3's detector (seed-0
+   weights and BatchNorm statistics) and batch of 4 through
+   `inference.sharded_forward`, (a) on a real one-rank NCCL group with the
+   kernel switches off, (b) on two gloo ranks sharing the card, two frames
+   each, with the switches on (the crop, conv and transposed conv kernels
+   on the path), each rank in a process started by `spawn` and joined
+   within SERVE_DEADLINE_S, starting from weights of its own and taking
+   rank 0's by `replicate_module`. Every rank's gathered dict is held
+   against this process's forward of the same detector on the same batch:
+   classes, valid flags, counts and the zero pattern of the final scores
+   exactly, boxes within SERVE_BOX_TOL, scores within SERVE_SCORE_TOL (the
+   largest differences printed, "bit-equal" where 0). Each rank counts its
+   launches by kernel in one sharded forward, which must equal this
+   process's launches at the rank's batch, and its collectives (the
+   gather's three `all_gather_into_tensor` calls and nothing else). Prints
+   each rank's forward ms (CUDA events, mean of ITERS after a warm call),
+   the gather's ms and bytes and the rank's peak memory, beside the card's
+   name and power limit; ranks that share one card say nothing of
+   multi-card speed. Then the host tools that need no matplotlib:
+   `tools/torch_dataset_stats.py mean` on the fixtures and
+   `tools/torch_show_predictions_3d.py`'s HTML of step 16's RCNN
+   predictions on the val frames, their seconds printed.
 
 Prints a {"kernels": [...]} JSON line, then the result as its last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -2819,24 +2849,97 @@ DP_DEADLINE_S = 300
 # sorted arm (with its prep) for its large sets; the rcnn_unittest RCNN's
 # sets are all below KNN_SORTED_MIN_N (the brute arm, RCNN_KERNELS).
 DP_KERNELS = ("knn", "knn_prep", "fps")
-# The full-width RPN's image branch: its float32 gradients at batch 2 move
-# by a few hundredths of a tensor's largest |element| when one process only
-# swaps the two frames of its batch (the same sums in another order; up to
-# 4.7e-2 on an H100, `frame_swap_resolution`, printed every run), so the
-# ranks' image-branch gradients are held within DP_IMAGE_GRAD_SHARE x that
-# largest |element| (every other gradient as `params_agree` holds it).
+# The full-width RPN's image branch: its float32 gradients at batch 2
+# resolve only to a few hundredths of a tensor's largest |element|. Two
+# ranks of one frame each sum in another order than one process: they run
+# their convolutions at batch 1 (cuDNN's batch-1 algorithms) and form
+# BatchNorm's moments from all-reduced per-frame sums, and the fast
+# variance E[x^2] - E[x]^2 cancels in channels of a large mean. Measured on
+# an H100 (five runs of `tools/dp_gate_runs.py`): one process at batch 2
+# lies up to 0.057 of the largest |element| from the same steps in the
+# ranks' order, and as far with only its convolutions frame by frame (the
+# convolutions' order moves nothing measurable; BatchNorm's moments move
+# it all); the ranks lie 1.8e-5 to 2.8e-3 from the steps in their order.
+# So the two gloo ranks are held against this process's steps in the ranks'
+# summation order (`frames_as_ranks`), their image-branch gradients within
+# DP_IMAGE_GRAD_SHARE x the tensor's largest |element| (every other
+# gradient as `params_agree` holds it): the 0.05 they were held to against
+# the steps at batch 2, which one of those five runs exceeded. Both
+# resolutions are printed every run.
 DP_IMAGE_GRAD_SHARE = 5e-2
+
+
+@contextlib.contextmanager
+def frames_as_ranks(moments=True):
+    """One process in the summation order of ranks of one frame each: every
+    2-D convolution and transposed convolution of a batch of more than one
+    frame run frame by frame, forward and backward (cuDNN's batch-1
+    algorithms), the frames' outputs stacked; and, with `moments`,
+    BatchNorm's training moments from each frame's sums of x and x^2 added
+    in frame order (what the ranks' all-reduce adds)."""
+    import torch
+    import torch.nn.functional as F
+
+    from heterofusionrcnn_torch.models.extractors import layers
+
+    saved = {name: getattr(F, name) for name in ("conv2d", "conv_transpose2d")}
+    batch_moments = layers.batch_moments
+
+    def per_frame(fn):
+        def run(x, *args, **kwargs):
+            if x.dim() != 4 or x.shape[0] == 1:
+                return fn(x, *args, **kwargs)
+            return torch.cat([fn(x[i:i + 1], *args, **kwargs) for i in range(x.shape[0])])
+        return run
+
+    def per_frame_moments(xs, channel_dim, group=None):
+        if group is not None or xs.shape[0] == 1:
+            return batch_moments(xs, channel_dim, group)
+        dims = [d for d in range(xs.dim()) if d != channel_dim % xs.dim()]
+        c = xs.shape[channel_dim]
+        sums = sum(torch.cat([f.sum(dims), (f * f).sum(dims)]) for f in xs.split(1))
+        count = xs.numel() // c
+        return sums[:c] / count, sums[c:] / count
+
+    for name, fn in saved.items():
+        setattr(F, name, per_frame(fn))
+    if moments:
+        layers.batch_moments = per_frame_moments
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(F, name, fn)
+        layers.batch_moments = batch_moments
+
+
+def rank_group(rank, world_size, init_method, backend, timeout_s):
+    """A spawned rank's process group on the card: at world size 1 a real
+    one-rank group (which `initialize_distributed` would not form), else
+    `initialize_distributed`'s, NCCL ranks on cuda:LOCAL_RANK (the rank)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from heterofusionrcnn_torch.parallel import distributed
+
+    if world_size > 1:
+        return distributed.initialize_distributed(rank, world_size, init_method, "cuda",
+                                                  backend)["group"]
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=init_method, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=timeout_s),
+                            device_id=torch.device("cuda", 0))
+    return dist.group.WORLD
 
 
 def dp_rank(rank, world_size, init_method, spec_path, out_dir, backend):
     """One rank of step 13 on the card: `run_steps` of the saved spec in a
-    group of `backend` (at world size 1 a real one-rank group, which
-    `initialize_distributed` would not form), each step counted and timed
+    group of `backend` (`rank_group`), each step counted and timed
     (`StepMonitor`), one KNN and one FPS call of the second step held
     bit-exact, the all-reduces of the steps counted, then the gradient
     all-reduce timed alone; results to <out_dir>/rank<rank>.pt."""
-    import datetime
-
     import torch
     import torch.distributed as dist
 
@@ -2848,15 +2951,7 @@ def dp_rank(rank, world_size, init_method, spec_path, out_dir, backend):
     from tests import torch_dp_worker
 
     spec = torch.load(spec_path, weights_only=False)
-    if world_size == 1:
-        torch.cuda.set_device(0)
-        dist.init_process_group(backend, init_method=init_method, rank=0, world_size=1,
-                                timeout=datetime.timedelta(seconds=DP_DEADLINE_S),
-                                device_id=torch.device("cuda", 0))
-        group = dist.group.WORLD
-    else:
-        group = distributed.initialize_distributed(rank, world_size, init_method, "cuda",
-                                                   backend)["group"]
+    group = rank_group(rank, world_size, init_method, backend, DP_DEADLINE_S)
     try:
         kernels = {"knn": grouping.KNN_KERNEL, "knn_prep": grouping.KNN_PREP_KERNEL,
                    "fps": sampling.FPS_KERNEL}
@@ -2902,37 +2997,29 @@ def dp_grads_close(got, want, name):
     return bool(((got - want).abs() <= atol + PARAM_TOL["rtol"] * want.abs()).all())
 
 
-def frame_swap_resolution(cfg, batch):
-    """How far float32 resolves the gradients of `cfg`'s RPN (dropout and
-    path drop off) on the card at a batch of 2: the largest |difference|
-    between the gradients of the batch and of its frames swapped, over the
-    tensor's largest |gradient|, the largest in the image branch and
-    elsewhere."""
-    import torch
+def step_grads(got, ref):
+    """Per step of `got` (each step from `ref`'s state before it), the
+    step's gradients read from Adam's first moment."""
+    from heterofusionrcnn_torch.runtime.optimizer import ADAM_B1
 
-    from heterofusionrcnn_torch.inference import exact_float32
-    from heterofusionrcnn_torch.models.extractors.layers import init_weights
-    from heterofusionrcnn_torch.runtime.train_state import RPN_BATCH_KEYS
-    from tests import torch_dp_worker
+    out = []
+    for i, st in enumerate(got["steps"]):
+        before = ref["steps"][i - 1]["optimizer"]["state"]["mu"] if i else None
+        out.append({n: (m.cpu() - (ADAM_B1 * before[n] if i else 0.0)) / (1 - ADAM_B1)
+                    for n, m in st["optimizer"]["state"]["mu"].items()})
+    return out
 
-    exact_float32()
-    model, loss_fn = torch_dp_worker.build("rpn", no_dropout(cfg))
-    model = init_weights(model, SEED).cuda().train()
-    grads = []
-    for order in ([0, 1], [1, 0]):
-        model.zero_grad()
-        with torch.enable_grad():
-            loss_fn(model(*(torch.from_numpy(batch[k][order]).cuda()
-                            for k in RPN_BATCH_KEYS)))[1].backward()
-        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+
+def grad_shares(got, want):
+    """The largest |got - want| of a gradient over its largest |want|, the
+    largest of these in the image branch and elsewhere (gradients of 0 in
+    exact arithmetic, largest |want| <= 1e-5, aside)."""
     out = {"image branch": 0.0, "other": 0.0}
-    for n, g in grads[0].items():
-        scale = float(g.abs().max())
-        if scale > 1e-5:  # gradients of 0 in exact arithmetic aside
+    for n, w in want.items():
+        scale = float(w.abs().max())
+        if scale > 1e-5:
             part = "image branch" if n.startswith("img_vgg_pyr.") else "other"
-            out[part] = max(out[part], float((grads[1][n] - g).abs().max()) / scale)
-    del model, grads
-    torch.cuda.empty_cache()
+            out[part] = max(out[part], float((got[n] - w).abs().max()) / scale)
     return out
 
 
@@ -2973,22 +3060,46 @@ def dp_steps_agree(got, want, lr, grads_close=None):
 
 
 def dp_run(spec, world, backend, root, label, grads_close=None, kernels=DP_KERNELS,
-           agree=None):
+           agree=None, in_ranks_order=False):
     """`spec`'s steps in this process (no group) and on `world` ranks of
     `backend` (each step from this process's state before it): the checks
     of step 13 (module docstring; `agree(got, want, lr)` in place of
-    `dp_steps_agree`), each rank's steps launching `kernels`; returns the
-    report."""
+    `dp_steps_agree`), each rank's steps launching `kernels`. With
+    `in_ranks_order` this process runs in the ranks' summation order
+    (`frames_as_ranks`); the same steps again from its states at batch 2,
+    and with only the convolutions frame by frame, give the resolutions
+    printed (`grad_shares` against the steps in the ranks' order), and each
+    rank's differences from the steps in its order and at batch 2. Returns
+    the report."""
     import torch
 
     from heterofusionrcnn_torch.parallel.distributed import spawn_ranks
     from tests import torch_dp_worker
 
-    with torch.enable_grad():
+    with torch.enable_grad(), (frames_as_ranks() if in_ranks_order
+                               else contextlib.nullcontext()):
         want = torch_dp_worker.run_steps(spec, None, "cuda")
     torch.cuda.empty_cache()
     spec = dict(spec, restarts=[None] + [{k: st[k] for k in ("state_dict", "optimizer")}
                                          for st in want["steps"][:-1]])
+    resolution = None
+    if in_ranks_order:
+        with torch.enable_grad():
+            batch2 = step_grads(torch_dp_worker.run_steps(spec, None, "cuda"), want)
+            with frames_as_ranks(moments=False):
+                convs = step_grads(torch_dp_worker.run_steps(spec, None, "cuda"), want)
+        torch.cuda.empty_cache()
+        ref = step_grads(want, want)
+        resolution = {"batch 2": [grad_shares(g, w) for g, w in zip(batch2, ref)],
+                      "convolutions frame by frame": [grad_shares(g, w)
+                                                      for g, w in zip(convs, ref)]}
+        print(f"{label}: this process's steps against the same steps in the ranks' summation "
+              "order (frames_as_ranks), largest |difference| / largest |gradient| per step: "
+              + "; ".join(f"{form}: " + " | ".join(", ".join(f"{k} {v:.3g}" for k, v in r.items())
+                                                   for r in per_step)
+                          for form, per_step in resolution.items())
+              + f" (the ranks' image branch is held within {DP_IMAGE_GRAD_SHARE} of the steps in "
+              "their order)", flush=True)
     out = os.path.join(root, label)
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
@@ -3002,8 +3113,18 @@ def dp_run(spec, world, backend, root, label, grads_close=None, kernels=DP_KERNE
              for r in range(world)]
     lr = spec["cfg"].train_config.optimizer.initial_learning_rate
     report = dict(label=label, world=world, backend=backend, wall_s=wall_s,
-                  one_process_metrics=[st["metrics"] for st in want["steps"]], ranks=[])
+                  one_process_metrics=[st["metrics"] for st in want["steps"]], ranks=[],
+                  in_ranks_order=in_ranks_order, resolution=resolution)
     for res in ranks:
+        if in_ranks_order:
+            got = step_grads(res, want)
+            shares = {"in the ranks' order": [grad_shares(g, w) for g, w in zip(got, ref)],
+                      "batch 2": [grad_shares(g, w) for g, w in zip(got, batch2)]}
+            print(f"{label} rank {res['rank']}: largest |difference| / largest |gradient| per "
+                  "step against the one-process steps " + "; ".join(
+                      f"{against}: " + " | ".join(", ".join(f"{k} {v:.3g}" for k, v in r.items())
+                                                  for r in per_step)
+                      for against, per_step in shares.items()), flush=True)
         bad, widened = (agree(res, want, lr) if agree
                         else dp_steps_agree(res, want, lr, grads_close))
         if bad:
@@ -3014,6 +3135,7 @@ def dp_run(spec, world, backend, root, label, grads_close=None, kernels=DP_KERNE
         share = res["grad_all_reduce_ms"] / res["steps_ms"][-1]  # of the warm step
         report["ranks"].append(dict(
             rank=res["rank"], steps_ms=res["steps_ms"], launches=res["launches"],
+            grad_shares=shares if in_ranks_order else None,
             widened=widened, metrics=[st["metrics"] for st in res["steps"]],
             all_reduces_per_step=res["all_reduces_per_step"],
             all_reduce_bytes_per_step=res["all_reduce_bytes_per_step"],
@@ -3037,8 +3159,6 @@ def dp_phase(out_root):
     """Step 13 (module docstring): NCCL at world size 1, two gloo ranks on
     the card at full width (RPN) and at rcnn_unittest width (RCNN), and the
     CLI's guard."""
-    import copy
-
     from heterofusionrcnn_torch.experiments import common, run_training
     from heterofusionrcnn_torch.models.extractors.layers import init_weights
     from heterofusionrcnn_torch.runtime.train_state import RPN_BATCH_KEYS
@@ -3068,14 +3188,9 @@ def dp_phase(out_root):
     rpn = spec("rpn", cfg, [next_batch() for _ in range(DP_STEPS)])
     if set(rpn["batches"][0]) != set(RPN_BATCH_KEYS):
         raise AssertionError(f"batch keys {sorted(rpn['batches'][0])}")
-    report["frame_swap_resolution"] = frame_swap_resolution(copy.deepcopy(cfg),
-                                                            rpn["batches"][0])
-    print("rpn_multiclass gradients, one process, frames swapped: largest |difference| / "
-          "largest |gradient| " + ", ".join(f"{k} {v:.3g}"
-                                          for k, v in report["frame_swap_resolution"].items())
-          + f" (the ranks' image branch is held within {DP_IMAGE_GRAD_SHARE})", flush=True)
     report["nccl_world1"] = dp_run(rpn, 1, "nccl", root, "rpn_multiclass_nccl_w1")
-    report["gloo_rpn"] = dp_run(rpn, 2, "gloo", root, "rpn_multiclass_gloo_w2", dp_grads_close)
+    report["gloo_rpn"] = dp_run(rpn, 2, "gloo", root, "rpn_multiclass_gloo_w2", dp_grads_close,
+                                in_ranks_order=True)
 
     cfg = common.resolve_config("rcnn_unittest", KITTI_DIR)
     dataset = common.build_dataset(cfg, "train", "train")
@@ -4218,6 +4333,219 @@ def workflow_phase(kernels, out_root):
     return report, finish_rows(rows)
 
 
+# Step 17, batch-sharded serving (cell L): cell A's batch-4 detector split
+# over the ranks of a process group (`inference.sharded_forward`), each
+# rank a spawned process, every run joined within SERVE_DEADLINE_S.
+SERVE_DEADLINE_S = 300
+# (label, world size, backend, kernel switches)
+SERVE_RUNS = (("nccl_w1_switches_off", 1, "nccl", False),
+              ("gloo_w2_switches_on", 2, "gloo", True))
+# Against one process on the same batch: the JAX test's tolerances
+# (tests/test_parallel_extras.py, the fused function sharded over 8
+# devices) for the boxes and scores; every other output (classes, valid
+# flags, counts) and the zero pattern of the final scores (the keep sets)
+# exactly.
+SERVE_BOX_TOL = dict(rtol=1e-3, atol=1e-3)
+SERVE_SCORE_TOL = dict(rtol=1e-3, atol=1e-4)
+SERVE_BOXES = ("proposals", "final_boxes")
+SERVE_SCORES = ("proposal_scores", "final_scores")
+
+
+def float32_kernels():
+    """The float32 kernels of the main path, by name: the launch counters."""
+    from heterofusionrcnn_torch.ops import conv, cropping, grouping, nms, sampling, xconv
+
+    return {"knn": grouping.KNN_KERNEL, "knn_prep": grouping.KNN_PREP_KERNEL,
+            "fps": sampling.FPS_KERNEL, "nms": nms.NMS_KERNEL, "xconv": xconv.XCONV_KERNEL,
+            "xconv_epilogue": xconv.XCONV_EPILOGUE_KERNEL, "crop": cropping.CROP_KERNEL,
+            "conv": conv.CONV_KERNEL, "convt": conv.CONVT_KERNEL}
+
+
+def serve_rank(rank, world_size, init_method, spec_path, out_dir, backend):
+    """One rank of step 17 on the card (`rank_group`): the spec's detector
+    from weights of its own, then rank 0's (`torch_serve_worker.
+    replicated_detector`); one sharded forward counted (launches by kernel,
+    collectives, peak memory), the forward timed (CUDA events, mean of
+    ITERS after that warm call), the gather alone timed on this rank's
+    outputs; results to <out_dir>/rank<rank>.pt."""
+    import torch
+
+    from heterofusionrcnn_torch.inference import exact_float32, sharded_forward
+    from heterofusionrcnn_torch.parallel import distributed
+    from heterofusionrcnn_torch.parallel.mesh import gather_rows, shard_batch
+    from tests import torch_serve_worker
+
+    spec = torch.load(spec_path, weights_only=False)
+    exact_float32()
+    group = rank_group(rank, world_size, init_method, backend, SERVE_DEADLINE_S)
+    try:
+        det = torch_serve_worker.replicated_detector(spec, group, "cuda",
+                                                     switches=spec["switches"])
+        replicated = all(torch.equal(v.cpu(), spec["state_dict"][k])
+                         for k, v in det.state_dict().items())
+        inputs = tuple(torch.from_numpy(spec["inputs"][k]).cuda() for k in ("pc", "img", "p2"))
+
+        def forward(*x):
+            return sharded_forward(det, *x, group)
+
+        torch.cuda.reset_peak_memory_stats()
+        with torch_serve_worker.CountedCollectives() as collectives:
+            out, launches = counted_forward(forward, inputs, float32_kernels())
+        peak = torch.cuda.max_memory_allocated()
+        forward_ms = cuda_ms(lambda: forward(*inputs), ITERS)
+        local = shard_batch(dict(zip(("pc", "img", "p2"), inputs)), group)
+        local_out = det(local["pc"], local["img"], local["p2"])
+        gather_ms = cuda_ms(lambda: gather_rows(local_out, group), REPS)
+        torch.save(dict(rank=rank, out={k: v.cpu() for k, v in out.items()}, launches=launches,
+                        collectives=collectives.calls, replicated=replicated,
+                        peak_gb=peak / 1e9, forward_ms=forward_ms, gather_ms=gather_ms,
+                        gather_bytes=sum(v.numel() * v.element_size() for v in out.values())),
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown_distributed()
+
+
+def serve_agrees(got, want, label):
+    """A rank's gathered dict against the one-process forward (SERVE_*):
+    raises where it differs; returns each entry's largest |difference|."""
+    import torch
+
+    diffs = {}
+    for key, w in want.items():
+        w, g = w.cpu(), got[key]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label} {key}: {g.dtype} {tuple(g.shape)} against "
+                                 f"{w.dtype} {tuple(w.shape)}")
+        diffs[key] = float((g.double() - w.double()).abs().max())
+        tol = (SERVE_BOX_TOL if key in SERVE_BOXES else SERVE_SCORE_TOL if key in SERVE_SCORES
+               else None)
+        if tol is None and not torch.equal(g, w):
+            raise AssertionError(f"{label} {key} differs from one process")
+        if tol is not None and not torch.allclose(g, w, **tol):
+            raise AssertionError(f"{label} {key} differs from one process by {diffs[key]:.3g}")
+    if not torch.equal(got["final_scores"] == 0, want["final_scores"].cpu() == 0):
+        raise AssertionError(f"{label}: other keep sets than one process")
+    return diffs
+
+
+def serve_phase(det, inputs, kernels, out_root, pipeline):
+    """Step 17 (module docstring), cell L. `det` and `inputs` are cell A's
+    switches-off detector and batch, `pipeline` step 16's summary (its
+    RCNN predictions feed the 3D viewer). Returns the report."""
+    import io
+
+    import torch
+
+    from heterofusionrcnn_torch.configs.presets import rcnn_multiclass, rpn_multiclass
+    from heterofusionrcnn_torch.inference import CLUSTER_SIZES
+    from heterofusionrcnn_torch.parallel.distributed import spawn_ranks
+    from tests import torch_serve_worker
+    from tools import torch_dataset_stats, torch_show_predictions_3d
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"batch-sharded serving on {card}: ranks that share one card say nothing of "
+          "multi-card speed; NCCL runs at world size 1 only on a single card", flush=True)
+    root = os.path.join(out_root, "chip_smoke_serve")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rpn_cfg, rcnn_cfg = rpn_multiclass(), rcnn_multiclass()
+    rcnn_cfg.model_config.rcnn_config.rcnn_use_rpn_img_feature_map = True  # build_two_stage's
+    spec = dict(rpn_cfg=rpn_cfg, rcnn_cfg=rcnn_cfg, cluster_sizes=CLUSTER_SIZES, bev_z_max=70.0,
+                state_dict={k: v.cpu() for k, v in det.state_dict().items()},
+                inputs={k: t.cpu().numpy() for k, t in zip(("pc", "img", "p2"), inputs)})
+    report = dict(card=card, runs={})
+    for label, world, backend, switches in SERVE_RUNS:
+        t0 = time.perf_counter()
+        one = torch_serve_worker.detector(spec, switches=switches).cuda()
+        want, want_launches = counted_forward(one, inputs, kernels)
+        b = BATCH // world
+        local_launches = (counted_forward(one, tuple(t[:b] for t in inputs), kernels)[1]
+                          if b != BATCH else want_launches)
+        one_ms = cuda_ms(lambda: one(*inputs), ITERS)
+        del one
+        torch.cuda.empty_cache()
+        run_dir = os.path.join(root, label)
+        os.makedirs(run_dir)
+        spec_path = os.path.join(run_dir, "spec.pt")
+        torch.save(dict(spec, switches=switches), spec_path)
+        t_ranks = time.perf_counter()
+        spawn_ranks(serve_rank, world, args=(spec_path, run_dir, backend),
+                    timeout_s=SERVE_DEADLINE_S, rendezvous_dir=run_dir)
+        ranks_s = time.perf_counter() - t_ranks
+        ranks = [torch.load(os.path.join(run_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+        need = SLICE1 + (tuple(SWITCHED_PER_FORWARD) if switches else ())
+        run = dict(world=world, backend=backend, switches=switches, frames_per_rank=b,
+                   one_process_ms=one_ms, one_process_launches=want_launches,
+                   one_process_launches_at_rank_batch=local_launches, ranks_s=ranks_s, ranks=[])
+        for res in ranks:
+            r = res["rank"]
+            if not res["replicated"]:
+                raise AssertionError(f"{label} rank {r}: weights other than rank 0's")
+            gathers = dict(dict.fromkeys(torch_serve_worker.COLLECTIVES, 0),
+                           all_gather_into_tensor=3)
+            if res["collectives"] != gathers:
+                raise AssertionError(f"{label} rank {r}: collectives {res['collectives']}")
+            if res["launches"] != local_launches or not all(res["launches"][k] for k in need):
+                raise AssertionError(f"{label} rank {r}: launches {res['launches']} against one "
+                                     f"process's {local_launches} at {b} frames")
+            diffs = serve_agrees(res["out"], want, f"{label} rank {r}")
+            run["ranks"].append(dict(rank=r, launches=res["launches"], max_abs_diff=diffs,
+                                     forward_ms=res["forward_ms"], gather_ms=res["gather_ms"],
+                                     gather_bytes=res["gather_bytes"], peak_gb=res["peak_gb"]))
+            same = ("the same as" if res["launches"] == want_launches
+                    else f"one process at {BATCH} frames: {want_launches}; here")
+            print(f"{label} rank {r}/{world} ({backend}, {b} frames): forward "
+                  f"{res['forward_ms']:.2f} ms (one process, {BATCH} frames: {one_ms:.2f}); "
+                  f"the gather {res['gather_ms']:.3f} ms for {res['gather_bytes']} bytes; peak "
+                  f"{res['peak_gb']:.2f} GB; launches {same} one process's at {b} frames ("
+                  + " ".join(f"{k}={v}" for k, v in res["launches"].items() if v)
+                  + "); largest |difference| from one process "
+                  + ", ".join(f"{k} {v:.3g}" if v else f"{k} 0 (bit-equal)"
+                              for k, v in diffs.items()) + "; agrees", flush=True)
+        run["s"] = time.perf_counter() - t0
+        report["runs"][label] = run
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    # The host tools that need no matplotlib (the card's machine has none).
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        torch_dataset_stats.main(["mean", "--dataset_dir", KITTI_DIR])
+    mean_line = printed.getvalue().splitlines()[0]
+    if not re.fullmatch(r"RGB means: \[\d+\.\d{4}, \d+\.\d{4}, \d+\.\d{4}\]", mean_line):
+        raise AssertionError(f"torch_dataset_stats mean printed {printed.getvalue()!r}")
+    report["dataset_stats_mean_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scenes = os.path.join(root, "scenes")
+    predictions = os.path.join(out_root, "chip_smoke_pipeline", PIPELINE_CONFIGS[1], "predictions")
+    with contextlib.redirect_stdout(io.StringIO()):
+        torch_show_predictions_3d.main(
+            ["--dataset_dir", KITTI_DIR, "--data_split", "val", "--predictions_dir", predictions,
+             "--step", str(pipeline["rcnn_step"]), "--out_dir", scenes])
+    pages = sorted(os.listdir(scenes))
+    frames = sorted(os.listdir(os.path.join(predictions, "final_predictions_and_scores", "val",
+                                            str(pipeline["rcnn_step"]))))
+    if pages != [f.replace(".txt", ".html") for f in frames]:
+        raise AssertionError(f"scene pages {pages} for the frames {frames}")
+    boxes = 0
+    for page in pages:
+        with open(os.path.join(scenes, page)) as f:
+            data = json.loads(re.search(r"const DATA = (\{.*?\});\n", f.read(), re.S).group(1))
+        if not data["points"] or not data["boxes"]:
+            raise AssertionError(f"{page}: {len(data['points'])} points, "
+                                 f"{len(data['boxes'])} boxes")
+        boxes += len(data["boxes"])
+    report["show_predictions_3d_s"] = time.perf_counter() - t0
+    print(f"host tools: torch_dataset_stats mean {report['dataset_stats_mean_s']:.2f} s "
+          f"({mean_line}); torch_show_predictions_3d {len(pages)} HTML scenes of step 16's RCNN "
+          f"predictions ({boxes} boxes) {report['show_predictions_3d_s']:.2f} s", flush=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve phase: {report['phase_s']:.1f} s", flush=True)
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="outputs", help="directory for chip_smoke.json")
@@ -4232,7 +4560,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     try:
         from heterofusionrcnn_torch.inference import build_two_stage
-        from heterofusionrcnn_torch.ops import conv, cropping, dispatch, grouping, nms, sampling, xconv
+        from heterofusionrcnn_torch.ops import conv, cropping, dispatch, xconv
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 2
@@ -4240,11 +4568,7 @@ def main(argv=None) -> int:
     report = {"card": card_line(), "torch": torch.__version__, "cuda": torch.version.cuda}
     print(report["card"], flush=True)
 
-    kernels = {"knn": grouping.KNN_KERNEL, "knn_prep": grouping.KNN_PREP_KERNEL,
-               "fps": sampling.FPS_KERNEL,
-               "nms": nms.NMS_KERNEL, "xconv": xconv.XCONV_KERNEL,
-               "xconv_epilogue": xconv.XCONV_EPILOGUE_KERNEL, "crop": cropping.CROP_KERNEL, "conv": conv.CONV_KERNEL,
-               "convt": conv.CONVT_KERNEL}
+    kernels = float32_kernels()
     # The bf16 entries of the same libraries (step 12), counted apart.
     kernels_bf16 = {"xconv_bf16": xconv.XCONV_BF16_KERNEL,
                     "xconv_epilogue_bf16": xconv.XCONV_EPILOGUE_BF16_KERNEL,
@@ -4362,6 +4686,7 @@ def main(argv=None) -> int:
     rows.update(stage1_rows)
     report["workflow"], workflow_rows = workflow_phase(dict(kernels, **kernels_bf16), args.out)
     rows.update(workflow_rows)
+    report["serve"] = serve_phase(det, inputs, kernels, args.out, report["workflow"]["pipeline"])
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

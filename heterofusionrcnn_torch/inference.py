@@ -12,7 +12,8 @@ point crop's feature gather through `ops/cropping.crop_gather`, JAX's
 `HFR_PALLAS_CROP=1`). Each stage computes in its config's
 `model_config.compute_dtype` ("float32" or "bfloat16", the bf16 serving
 path; `build_two_stage(compute_dtype=...)` sets both, as the JAX bench's
-`build_stages(dtype=...)` does).
+`build_stages(dtype=...)` does). `sharded_forward` runs it over a batch
+split across the ranks of a process group.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from heterofusionrcnn_torch.configs.config import PipelineConfig
@@ -28,6 +30,7 @@ from heterofusionrcnn_torch.configs.presets import rcnn_multiclass, rpn_multicla
 from heterofusionrcnn_torch.models.extractors.layers import init_weights
 from heterofusionrcnn_torch.models.rcnn import RcnnModel
 from heterofusionrcnn_torch.models.rpn import RpnModel, rpn_fts_channels
+from heterofusionrcnn_torch.parallel.mesh import gather_rows, shard_batch
 
 # KITTI class mean sizes [l, w, h] of Car, Pedestrian, Cyclist.
 CLUSTER_SIZES = ((3.9, 1.6, 1.56), (0.8, 0.66, 1.74), (1.76, 0.6, 1.73))
@@ -88,6 +91,21 @@ class TwoStageDetector(nn.Module):
             "final_valid": rcnn_out["final_valid"],
             "num_final": rcnn_out["num_boxes_before_padding"],
         }
+
+
+def sharded_forward(det: TwoStageDetector, pc: torch.Tensor, img: torch.Tensor, p2: torch.Tensor,
+                    group: Optional[dist.ProcessGroup]) -> Dict[str, torch.Tensor]:
+    """The detector's forward on a global batch split over the ranks of
+    `group` (the JAX fused function jitted with the batch axis sharded over
+    a data mesh, the weights replicated): this rank runs its rows
+    (`shard_batch`; a world size that does not divide the batch raises
+    ValueError on every rank before any collective) and every rank gets the
+    whole dict (`gather_rows`, the call's only collective: in test mode the
+    BatchNorms run on their running statistics). The weights must be the
+    same on every rank (`parallel.mesh.replicate_module`). Without a group,
+    `det(pc, img, p2)`."""
+    local = shard_batch({"pc": pc, "img": img, "p2": p2}, group)
+    return gather_rows(det(local["pc"], local["img"], local["p2"]), group)
 
 
 def random_batch(cfg: PipelineConfig, batch_size: int, seed: int) -> Dict[str, np.ndarray]:

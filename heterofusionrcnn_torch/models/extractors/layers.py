@@ -78,6 +78,21 @@ def batch_norm_eval_promoted(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tenso
     return y.to(x.dtype)
 
 
+def batch_moments(xs: torch.Tensor, channel_dim: int,
+                  group: Optional[dist.ProcessGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """E[x] and E[x^2] of the float32 `xs` per channel (`channel_dim`) over
+    every other dimension: over this process's rows without a group; with
+    one, from the sums of x and x^2 all-reduced over the group (one
+    all-reduce, differentiable) over the global count of elements."""
+    dims = [d for d in range(xs.dim()) if d != channel_dim % xs.dim()]
+    if group is None:
+        return xs.mean(dims), (xs * xs).mean(dims)
+    c = xs.shape[channel_dim]
+    sums = all_reduce_sum(torch.cat([xs.sum(dims), (xs * xs).sum(dims)]), group)
+    count = (xs.numel() // c) * dist.get_world_size(group)
+    return sums[:c] / count, sums[c:] / count
+
+
 def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
                      channel_dim: int,
                      group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
@@ -99,18 +114,9 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     group (one all-reduce, differentiable, `parallel/mesh.py`) over the
     global count of elements, so every rank normalises and moves its
     running statistics alike."""
-    dims = [d for d in range(x.dim()) if d != channel_dim % x.dim()]
     shape = [1] * x.dim()
     shape[channel_dim] = x.shape[channel_dim]
-    xs = x.float()
-    if group is None:
-        mean = xs.mean(dims)
-        mean_sq = (xs * xs).mean(dims)
-    else:
-        c = x.shape[channel_dim]
-        sums = all_reduce_sum(torch.cat([xs.sum(dims), (xs * xs).sum(dims)]), group)
-        count = (x.numel() // c) * dist.get_world_size(group)
-        mean, mean_sq = sums[:c] / count, sums[c:] / count
+    mean, mean_sq = batch_moments(x.float(), channel_dim, group)
     var = torch.clamp(mean_sq - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)

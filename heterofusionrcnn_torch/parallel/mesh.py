@@ -14,6 +14,10 @@ and the same arithmetic comes from explicit collectives:
     all-reduce over a flat buffer (`runtime/train_state.py`);
   - `replicate_state`: Horovod's rank-0 broadcast of the whole train state.
 
+Batch-sharded serving (`inference.sharded_forward`) needs two more:
+`replicate_module` (the weights, as `replicated(mesh)` places them) and
+`gather_rows` (the outputs, as `batch_sharding(mesh)` reads them back).
+
 The group is held explicitly: the layers that need it carry it in their
 `dp_group` attribute (`set_data_parallel_group`, as `nn.SyncBatchNorm`
 carries `process_group`), the loss functions and `TrainState` take it as
@@ -151,6 +155,46 @@ def replicate_state(state, group: Optional[dist.ProcessGroup]):
     for n, s in zip(names, gen_states):
         state.generators[n].set_state(s.cpu())
     return state
+
+
+@torch.no_grad()
+def replicate_module(module: nn.Module, group: Optional[dist.ProcessGroup]) -> nn.Module:
+    """Rank 0's parameters and buffers (BatchNorm statistics included) on
+    every rank, one broadcast per dtype (`jax.device_put(vars,
+    replicated(mesh))`). Returns `module`, changed in place; unchanged
+    without a group."""
+    if group is not None:
+        _broadcast_from_rank0([*module.parameters(), *module.buffers()], group)
+    return module
+
+
+def gather_rows(tree: Dict[str, torch.Tensor],
+                group: Optional[dist.ProcessGroup]) -> Dict[str, torch.Tensor]:
+    """Every rank's rows of each entry of `tree` (leading axis: the frames,
+    the same count on every rank) as the global batch, in rank order, on
+    every rank: the read-back of a JAX result with `out_shardings=
+    batch_sharding(mesh)`. The entries travel in one flat buffer per dtype
+    (bool as uint8), each gathered by one `all_gather_into_tensor`: a
+    detector's dict of seven small outputs takes three collectives, whose
+    latency, not their few kilobytes, is their cost. `tree` itself without a
+    group."""
+    if group is None:
+        return tree
+    _, world = rank_and_size(group)
+    by_dtype: Dict[torch.dtype, List[str]] = {}
+    for key, val in tree.items():
+        by_dtype.setdefault(val.dtype, []).append(key)
+    out = {}
+    for dtype, keys in by_dtype.items():
+        wire = torch.uint8 if dtype == torch.bool else dtype
+        flat = torch.cat([tree[k].reshape(-1).to(wire) for k in keys])
+        gathered = torch.empty(world * flat.numel(), dtype=wire, device=flat.device)
+        dist.all_gather_into_tensor(gathered, flat, group=group)
+        per_rank = gathered.view(world, -1).split([tree[k].numel() for k in keys], dim=1)
+        for key, piece in zip(keys, per_rank):
+            local = tree[key]
+            out[key] = piece.reshape(world * local.shape[0], *local.shape[1:]).to(dtype)
+    return {key: out[key] for key in tree}
 
 
 def set_data_parallel_group(module: nn.Module, group: Optional[dist.ProcessGroup]) -> nn.Module:

@@ -1,12 +1,14 @@
 """Every top-level public function and class of `heterofusionrcnn_tpu/`
 has a counterpart of the same name in the same module of
-`heterofusionrcnn_torch/` (both read as ASTs, nothing imported), but for
-the exemptions below, each with its counterpart in the port or the reason
-it has none."""
+`heterofusionrcnn_torch/`, and every tool `tools/<name>.py` that imports
+the JAX package has a port counterpart `tools/torch_<name>.py` (all read as
+ASTs, nothing imported), but for the exemptions below, each with its
+counterpart in the port or the reason it has none."""
 
 from __future__ import annotations
 
 import ast
+import fnmatch
 from pathlib import Path
 
 import pytest
@@ -27,10 +29,14 @@ EXEMPT_MODULES = {
     "ops/pallas_fps.py", "ops/pallas_knn.py", "ops/pallas_nms.py", "ops/pallas_xconv.py",
 }
 EXEMPT = {
-    # The device mesh and shardings of JAX's data parallelism: the port's
+    # The device mesh of JAX's data parallelism: the port's
     # `parallel/mesh.py` works with a torch.distributed process group
     # (`rank_and_size`, `replicate_state`, `all_reduce_flat`).
     ("parallel/mesh.py", "make_data_mesh"),
+    # The shardings JAX's batch-sharded serving jits the fused function with
+    # (tests/test_parallel_extras.py): the port places the weights with
+    # `parallel/mesh.py:replicate_module`, reads the outputs back with
+    # `gather_rows`, and runs the forward with `inference.sharded_forward`.
     ("parallel/mesh.py", "batch_sharding"),
     ("parallel/mesh.py", "replicated"),
     # Whether the Pallas kernels may run: the port dispatches by the
@@ -45,6 +51,31 @@ EXEMPT = {
     # `inference.TwoStageDetector`.
     ("experiments/run_inference.py", "build_fused_inference"),
 }
+
+
+# Tools that import the JAX package and have no `tools/torch_<name>.py`:
+# the TPU measurement tools (the port's are `chip_smoke.py` and its card
+# tools, `tools/{knn_sweep,cluster_sweep,xconv_ablation,...}.py`), and the
+# converter, which reads JAX checkpoints by design and is a port tool.
+EXEMPT_TOOLS = {"check_kernels.py", "flops_ledger.py", "microbench_*.py", "profile_stages.py",
+                "sweep_knn_tiles.py", "convert_orbax_checkpoint.py"}
+
+
+def _imports_jax_package(path: Path) -> bool:
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+        if any(n.split(".")[0] == JAX_PKG.name for n in names):
+            return True
+    return False
+
+
+JAX_TOOLS = sorted(p.name for p in (ROOT / "tools").glob("*.py")
+                   if not p.name.startswith("torch_") and _imports_jax_package(p))
+
+
+def _tool_exempt(name: str) -> bool:
+    return any(fnmatch.fnmatch(name, pattern) for pattern in EXEMPT_TOOLS)
 
 
 def _public_names(pkg: Path):
@@ -78,3 +109,17 @@ def test_exemption_is_needed(entry):
 @pytest.mark.parametrize("module", sorted(EXEMPT_MODULES))
 def test_exempt_module_exists(module):
     assert (JAX_PKG / module).is_file()
+
+
+def test_every_jax_tool_has_a_port_counterpart():
+    missing = [n for n in JAX_TOOLS
+               if not _tool_exempt(n) and not (ROOT / "tools" / f"torch_{n}").is_file()]
+    assert not missing, f"no tools/torch_<name>.py for: {missing}"
+
+
+@pytest.mark.parametrize("pattern", sorted(EXEMPT_TOOLS))
+def test_tool_exemption_is_needed(pattern):
+    """A tool exemption names at least one tool that imports the JAX
+    package and has no port counterpart."""
+    assert [n for n in JAX_TOOLS if fnmatch.fnmatch(n, pattern)
+            and not (ROOT / "tools" / f"torch_{n}").is_file()]

@@ -34,7 +34,7 @@ def _imported_roots(path: Path):
 
 def test_port_has_files():
     assert len(FILES) > 15
-    assert len(TOOLS) == 5
+    assert len(TOOLS) == 9
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -11,6 +11,7 @@
   row for row within 1e-4 and the summary's avg_cls_acc. The port runs
   batches of 1 and of 2 (the last one padded), the JAX evaluator batches
   of 1; the port's batch 2 against its batch 1 at the same tolerances.
+- tools/plot_ap.py reads the AP summary the port's evaluator writes.
 - `repeated_checkpoint_run` with `num_rois=16` writes what the one-shot
   path writes at 16 RoIs (the JAX watcher drops `num_rois`), and skips the
   steps it evaluated.
@@ -61,6 +62,7 @@ from heterofusionrcnn_torch.runtime.checkpoint import CheckpointManager
 
 from tests.rcnn_fixtures import write_handoff
 from tests.test_torch_layers import as_jax, random_variables
+from tools import plot_ap
 
 STEP = 200
 NUM_ROIS = 16
@@ -224,6 +226,17 @@ def test_rcnn_evaluator_ledgers_match(eval_roots, other):
         rows = list(csv.reader(f))
     assert rows[0] == ["global_step", "avg_cls_acc", "avg_inference_time"]
     assert [int(r[0]) for r in rows[1:]] == [STEP]
+
+
+def test_plot_ap_reads_the_port_summaries(eval_roots):
+    """tools/plot_ap.py (package-free) finds the AP summary the port's
+    evaluator writes under kitti_native_eval/<thresh>/<step>/ and reads it
+    as written."""
+    roots, summaries, _ = eval_roots
+    parsed = plot_ap.parse_summaries(os.path.join(roots[1], "predictions"))
+    assert list(parsed) == [STEP]
+    assert parsed[STEP] == {k: tuple(v) for k, v in summaries[1]["ap"].items()}
+    assert len(parsed[STEP]["car_detection_3d"]) == 3
 
 
 def test_repeated_checkpoint_run_passes_num_rois(eval_roots, tmp_path, monkeypatch):
