@@ -13,7 +13,9 @@ latest step of each directory. One prediction file per frame lands in
 <output_root>/<rcnn checkpoint_name>/predictions/final_predictions_and_scores/
 <split>/<rpn step>_<rcnn step>_fused/<frame>.txt, one row per box:
 x y z l w h ry score class (%.5f). `--kitti_eval` converts them to KITTI
-rows and prints the native evaluator's AP lines.
+rows and prints the native evaluator's AP lines. It also prints the host
+ms a frame of each of the port's spans (`runtime/tracing.py`): the
+detector's layers from `two_stage` down.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from heterofusionrcnn_torch.experiments import common
 from heterofusionrcnn_torch.inference import exact_float32
+from heterofusionrcnn_torch.runtime import tracing
 from heterofusionrcnn_torch.runtime.checkpoint import CheckpointManager
 
 
@@ -71,7 +74,8 @@ def parse_args(argv=None):
 @torch.no_grad()
 def main(argv=None) -> dict:
     """Run the CLI; returns the output directory, the frame names, the ms of
-    each frame's forward and, with --kitti_eval, the AP table."""
+    each frame's forward, the host ms a frame of each span and, with
+    --kitti_eval, the AP table."""
     args = parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available")
@@ -106,26 +110,34 @@ def main(argv=None) -> dict:
     times, frames = [], []
     dataset._index_in_epoch = 0
     epoch0 = dataset.epochs_completed
-    while dataset.epochs_completed == epoch0:
-        batch, names = dataset.next_batch(
-            1, shuffle=False, model="rpn", pc_sample_pts=ic.pc_sample_pts,
-            img_w=ic.img_dims_w, img_h=ic.img_dims_h,
-        )
-        inputs = [torch.from_numpy(batch[k]).to(args.device)
-                  for k in ("point_cloud", "image_input", "stereo_calib_p2")]
-        t0 = time.time()
-        out = {k: v.cpu().numpy() for k, v in det(*inputs).items()}
-        times.append(time.time() - t0)
-        frames.append(names[0])
+    tracing.enable()
+    try:
+        while dataset.epochs_completed == epoch0:
+            batch, names = dataset.next_batch(
+                1, shuffle=False, model="rpn", pc_sample_pts=ic.pc_sample_pts,
+                img_w=ic.img_dims_w, img_h=ic.img_dims_h,
+            )
+            inputs = [torch.from_numpy(batch[k]).to(args.device)
+                      for k in ("point_cloud", "image_input", "stereo_calib_p2")]
+            t0 = time.time()
+            out = {k: v.cpu().numpy() for k, v in det(*inputs).items()}
+            times.append(time.time() - t0)
+            frames.append(names[0])
 
-        n = int(out["num_final"][0])
-        rows = np.column_stack([out["final_boxes"][0][:n], out["final_scores"][0][:n],
-                                out["final_classes"][0][:n]])
-        np.savetxt(os.path.join(out_dir, names[0] + ".txt"), rows, fmt="%.5f")
+            n = int(out["num_final"][0])
+            rows = np.column_stack([out["final_boxes"][0][:n], out["final_scores"][0][:n],
+                                    out["final_classes"][0][:n]])
+            np.savetxt(os.path.join(out_dir, names[0] + ".txt"), rows, fmt="%.5f")
+        span_ms = tracing.host_ms(tracing.collect()["spans"])
+    finally:
+        tracing.enable(False)
 
     print(f"inference done: {len(times)} samples, mean {np.mean(times) * 1000:.1f} ms, "
           f"median {np.median(times) * 1000:.1f} ms -> {out_dir}")
-    result = {"out_dir": out_dir, "frames": frames, "frame_ms": [t * 1e3 for t in times]}
+    print("host ms a frame by span: "
+          + ", ".join(f"{name} {ms:.2f}" for name, ms in span_ms.items()))
+    result = {"out_dir": out_dir, "frames": frames, "frame_ms": [t * 1e3 for t in times],
+              "span_ms": span_ms}
 
     if args.kitti_eval:
         from heterofusionrcnn_torch.runtime.kitti_writer import save_predictions_in_kitti_format

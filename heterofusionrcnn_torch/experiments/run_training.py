@@ -69,8 +69,12 @@ def parse_args(argv=None):
     parser.add_argument("--max_iterations", type=int, default=None)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile_steps", default=None,
-                        help="START:STOP step range traced with torch.profiler "
-                             "into <logs>/profile")
+                        help="START:STOP step range traced with torch.profiler into "
+                             "<logs>/profile (a Chrome trace: the port's hfr.* ranges, "
+                             "hfr.train.step around hfr.train.forward, .loss, .backward "
+                             "and .optimizer, and the models' hfr.rpn.* / hfr.rcnn.*, on "
+                             "the host thread's row around the operators and the launches "
+                             "of the kernels on the device rows; runtime/tracing.py)")
     parser.add_argument("--warm_start_from", default=None,
                         help="checkpoint dir for partial weight transfer "
                              "(same-named, same-shaped tensors; e.g. RPN -> RCNN)")

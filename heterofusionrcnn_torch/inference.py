@@ -31,6 +31,7 @@ from heterofusionrcnn_torch.models.extractors.layers import init_weights
 from heterofusionrcnn_torch.models.rcnn import RcnnModel
 from heterofusionrcnn_torch.models.rpn import RpnModel, rpn_fts_channels
 from heterofusionrcnn_torch.parallel.mesh import gather_rows, shard_batch
+from heterofusionrcnn_torch.runtime import tracing
 
 # KITTI class mean sizes [l, w, h] of Car, Pedestrian, Cyclist.
 CLUSTER_SIZES = ((3.9, 1.6, 1.56), (0.8, 0.66, 1.74), (1.76, 0.6, 1.73))
@@ -64,6 +65,7 @@ class TwoStageDetector(nn.Module):
         self.shared_vgg = rcnn_cfg.model_config.rcnn_config.rcnn_use_rpn_img_feature_map
 
     @torch.no_grad()
+    @tracing.spanned("two_stage")
     def forward(self, pc: torch.Tensor, img: torch.Tensor, p2: torch.Tensor) -> Dict[str, torch.Tensor]:
         """pc (B, P, 4), img (B, H, W, 3), p2 (B, 3, 4) -> the dict of the JAX
         package's fused function (`experiments/run_inference.py`):

@@ -64,6 +64,7 @@ from heterofusionrcnn_torch.ops.cropping import pc_crop_and_sample
 from heterofusionrcnn_torch.ops.image_crop import crop_and_resize
 from heterofusionrcnn_torch.ops.nms import oriented_nms_boxes_3d
 from heterofusionrcnn_torch.parallel.mesh import all_reduce_sum
+from heterofusionrcnn_torch.runtime import tracing
 
 
 class RcnnModel(nn.Module):
@@ -142,6 +143,7 @@ class RcnnModel(nn.Module):
         out_dim = (nbx * 2 + nbz * 2 + nbt * 2 + 4) * k
         self.reg_output = DenseBN(c, out_dim, use_bn=False, activation=False, **dt)
 
+    @tracing.spanned("rcnn")
     def forward(self, proposals, rpn_pts, rpn_intensity, rpn_fg_mask, rpn_fts,
                 img_input, calib_p2,
                 img_feature_map: Optional[torch.Tensor] = None,
@@ -172,66 +174,76 @@ class RcnnModel(nn.Module):
         if img_feature_map is not None:
             img_fts = img_feature_map.detach()
         else:
-            img_fts = self.img_vgg_pyr(preprocess_image(img_input))
+            with tracing.span("rcnn.img_vgg"):
+                img_fts = self.img_vgg_pyr(preprocess_image(img_input))
 
-        box_ind = torch.arange(b, device=proposals.device).repeat_interleave(n)
-        _, boxes2d_norm = project_boxes_to_image_space(
-            proposals, calib_p2, img_input.shape[2], img_input.shape[1]
-        )
-        img_rois = crop_and_resize(
-            img_fts, boxes_2d_to_yxyx(boxes2d_norm.reshape(nb, 4)), box_ind,
-            rc.rcnn_proposal_roi_img_crop_size,
-        )  # (Nb, r1, r1, C1)
+        with tracing.span("rcnn.img_crop"):
+            box_ind = torch.arange(b, device=proposals.device).repeat_interleave(n)
+            _, boxes2d_norm = project_boxes_to_image_space(
+                proposals, calib_p2, img_input.shape[2], img_input.shape[1]
+            )
+            img_rois = crop_and_resize(
+                img_fts, boxes_2d_to_yxyx(boxes2d_norm.reshape(nb, 4)), box_ind,
+                rc.rcnn_proposal_roi_img_crop_size,
+            )  # (Nb, r1, r1, C1)
 
-        flat_proposals = proposals.reshape(nb, 7)
-        expanded = expand_box_3d(flat_proposals, rc.rcnn_pooling_context_length)
-        crop_pts, crop_fts, crop_int, crop_mask, _, non_empty = pc_crop_and_sample(
-            rpn_pts, rpn_fts, rpn_intensity[..., None], rpn_fg_mask,
-            box_3d_to_corners(expanded), box_ind, rc.rcnn_proposal_roi_crop_size,
-            crop_kernel=self.crop_kernel,
-        )
+        with tracing.span("rcnn.pc_crop"):
+            flat_proposals = proposals.reshape(nb, 7)
+            expanded = expand_box_3d(flat_proposals, rc.rcnn_pooling_context_length)
+            crop_pts, crop_fts, crop_int, crop_mask, _, non_empty = pc_crop_and_sample(
+                rpn_pts, rpn_fts, rpn_intensity[..., None], rpn_fg_mask,
+                box_3d_to_corners(expanded), box_ind, rc.rcnn_proposal_roi_crop_size,
+                crop_kernel=self.crop_kernel,
+            )
 
-        crop_pts_ct = canonical_transform(crop_pts, flat_proposals)
-        crop_distance = torch.sqrt(torch.sum(crop_pts * crop_pts, dim=-1)) / self.bev_z_max - 0.5
-        parts = [crop_pts_ct]
-        if rc.rcnn_use_intensity_feature:
-            parts.append(crop_int)
-        parts += [crop_mask[..., None], crop_distance[..., None]]
-        x = self._stack("mlp", lc.rcnn_mlp_layers, torch.cat(parts, dim=-1), gens)
+            crop_pts_ct = canonical_transform(crop_pts, flat_proposals)
+            crop_distance = (torch.sqrt(torch.sum(crop_pts * crop_pts, dim=-1)) / self.bev_z_max
+                             - 0.5)
+        with tracing.span("rcnn.pc_encoder"):
+            parts = [crop_pts_ct]
+            if rc.rcnn_use_intensity_feature:
+                parts.append(crop_int)
+            parts += [crop_mask[..., None], crop_distance[..., None]]
+            x = self._stack("mlp", lc.rcnn_mlp_layers, torch.cat(parts, dim=-1), gens)
 
-        merged = torch.cat([crop_fts, x], dim=-1)
-        _, pc_rois = self.pc_pointcnn(crop_pts_ct, merged, gens.get("dropout"))  # (Nb, r, C')
+            merged = torch.cat([crop_fts, x], dim=-1)
+            _, pc_rois = self.pc_pointcnn(crop_pts_ct, merged, gens.get("dropout"))  # (Nb, r, C')
 
-        p_img, p_pc = cfg.path_drop_probabilities
-        if self.training and not (p_img == p_pc == 1.0):
-            if "path_drop" not in gens:
-                raise ValueError("path drop in training needs a 'path_drop' generator")
-            uniforms = torch.rand(3, generator=gens["path_drop"], device=proposals.device)
-            img_mask, pc_mask = create_path_drop_masks(p_img, p_pc, uniforms)
-            pc_rois = pc_rois * pc_mask
-            img_rois = img_rois * img_mask
+        with tracing.span("rcnn.head"):
+            p_img, p_pc = cfg.path_drop_probabilities
+            if self.training and not (p_img == p_pc == 1.0):
+                if "path_drop" not in gens:
+                    raise ValueError("path drop in training needs a 'path_drop' generator")
+                uniforms = torch.rand(3, generator=gens["path_drop"], device=proposals.device)
+                img_mask, pc_mask = create_path_drop_masks(p_img, p_pc, uniforms)
+                pc_rois = pc_rois * pc_mask
+                img_rois = img_rois * img_mask
 
-        if rc.rcnn_fusion_method == "mean_concat":
-            fuse = torch.cat([pc_rois.mean(1), img_rois.mean((1, 2))], dim=-1)
-        else:
-            fuse = torch.cat([pc_rois.reshape(nb, -1), img_rois.reshape(nb, -1)], dim=-1)
+            if rc.rcnn_fusion_method == "mean_concat":
+                fuse = torch.cat([pc_rois.mean(1), img_rois.mean((1, 2))], dim=-1)
+            else:
+                fuse = torch.cat([pc_rois.reshape(nb, -1), img_rois.reshape(nb, -1)], dim=-1)
 
-        cls_logits = self.cls_logits(self._stack("cls_fc", lc.rcnn_fc_layers, fuse, gens)).float()
-        cls_softmax = torch.softmax(cls_logits, dim=-1)  # (Nb, K+1)
-        out = self.reg_output(self._stack("reg_fc", lc.rcnn_fc_layers, fuse, gens)).float()
-        out = out.reshape(nb, k, -1)
-        fields = parse_bin_head(out, nbx, nbz, nbt)
+            cls_logits = self.cls_logits(
+                self._stack("cls_fc", lc.rcnn_fc_layers, fuse, gens)).float()
+            cls_softmax = torch.softmax(cls_logits, dim=-1)  # (Nb, K+1)
+            out = self.reg_output(self._stack("reg_fc", lc.rcnn_fc_layers, fuse, gens)).float()
+            out = out.reshape(nb, k, -1)
+            fields = parse_bin_head(out, nbx, nbz, nbt)
 
         predictions = {
             "cls_softmax": cls_softmax.reshape(b, n, k + 1),
             "non_empty_box_mask": non_empty.reshape(b, n),
         }
         if self.mode in ("val", "test"):
-            predictions.update(self._final_boxes(fields, flat_proposals, cls_softmax, non_empty, b))
+            with tracing.span("rcnn.final_boxes"):
+                predictions.update(self._final_boxes(fields, flat_proposals, cls_softmax,
+                                                     non_empty, b))
         if self.mode in ("train", "val"):
-            predictions.update(self._targets(fields, flat_proposals, cls_logits, non_empty,
-                                             proposals_iou.reshape(nb),
-                                             proposals_gt.reshape(nb, 8)))
+            with tracing.span("rcnn.targets"):
+                predictions.update(self._targets(fields, flat_proposals, cls_logits, non_empty,
+                                                 proposals_iou.reshape(nb),
+                                                 proposals_gt.reshape(nb, 8)))
         return predictions
 
     def _stack(self, prefix, layers, x, gens):
@@ -259,10 +271,11 @@ class RcnnModel(nn.Module):
         reg_boxes = take_class(reg_boxes, cls_fg_preds)
 
         batch_boxes = reg_boxes.reshape(b, n, 7)
-        nms_idx, nms_valid = oriented_nms_boxes_3d(
-            batch_boxes, cls_scores.reshape(b, n), rc.rcnn_nms_iou_thresh,
-            rc.rcnn_nms_size, valid_mask=non_empty.reshape(b, n),
-        )
+        with tracing.span("rcnn.nms"):
+            nms_idx, nms_valid = oriented_nms_boxes_3d(
+                batch_boxes, cls_scores.reshape(b, n), rc.rcnn_nms_iou_thresh,
+                rc.rcnn_nms_size, valid_mask=non_empty.reshape(b, n),
+            )
         safe = nms_idx.clamp(min=0).long()
         final_boxes = batch_boxes.gather(1, safe[..., None].expand(-1, -1, 7))
         final_softmax = cls_softmax.reshape(b, n, k + 1).gather(

@@ -61,6 +61,7 @@ from heterofusionrcnn_torch.models.extractors.pointcnn import PointCNN
 from heterofusionrcnn_torch.models.extractors.pointnet import PointNet
 from heterofusionrcnn_torch.ops.nms import oriented_nms_boxes_3d
 from heterofusionrcnn_torch.parallel.mesh import all_reduce_sum, rank_and_size
+from heterofusionrcnn_torch.runtime import tracing
 
 
 def bin_params(xz_search_range, xz_bin_len, theta_search_range, theta_bin_num):
@@ -235,6 +236,7 @@ class RpnModel(nn.Module):
         out_dim = (nbx * 2 + nbz * 2 + nbt * 2 + 4) * k
         self.fc_output = DenseBN(c, out_dim, use_bn=False, activation=False, **dt)
 
+    @tracing.spanned("rpn")
     def forward(self, pc_input, img_input, calib_p2, label_segs=None, label_regs=None,
                 label_boxes=None,
                 generators: Optional[Dict[str, torch.Generator]] = None) -> Dict[str, torch.Tensor]:
@@ -256,75 +258,78 @@ class RpnModel(nn.Module):
         pc_pts = pc_input[..., :3]
         pc_intensity = pc_input[..., 3:4]
         pc_in = pc_intensity if rpn_cfg.rpn_use_intensity_feature else None
-        if self.pc_extractor_name == "pc_pointcnn":
-            pc_pts_out, pc_fts = self.pc_pointcnn(pc_pts, pc_in, gens.get("dropout"),
-                                                  gens.get("sampling"))
-        else:
-            pc_pts_out, pc_fts = self.pc_pointnet(pc_pts, pc_in, gens.get("dropout"))
-        img_fts = self.img_vgg_pyr(preprocess_image(img_input))
+        with tracing.span("rpn.pc_extractor"):
+            if self.pc_extractor_name == "pc_pointcnn":
+                pc_pts_out, pc_fts = self.pc_pointcnn(pc_pts, pc_in, gens.get("dropout"),
+                                                      gens.get("sampling"))
+            else:
+                pc_pts_out, pc_fts = self.pc_pointnet(pc_pts, pc_in, gens.get("dropout"))
+        with tracing.span("rpn.img_vgg"):
+            img_fts = self.img_vgg_pyr(preprocess_image(img_input))
 
-        proj = rect_to_image(pc_pts_out, calib_p2)
-        h, w = img_fts.shape[1], img_fts.shape[2]
-        ds = cfg.layers_config.img_vgg_pyr.downsample
-        if ds > 1:
-            proj = proj / ds
-        u = proj[..., 0].to(torch.int32).clamp(0, w - 1).long()
-        v = proj[..., 1].to(torch.int32).clamp(0, h - 1).long()
-        bi = torch.arange(b, device=u.device)[:, None]
-        proj_img_fts = img_fts[bi, v, u]  # (B, P, C1)
+        with tracing.span("rpn.head"):
+            proj = rect_to_image(pc_pts_out, calib_p2)
+            h, w = img_fts.shape[1], img_fts.shape[2]
+            ds = cfg.layers_config.img_vgg_pyr.downsample
+            if ds > 1:
+                proj = proj / ds
+            u = proj[..., 0].to(torch.int32).clamp(0, w - 1).long()
+            v = proj[..., 1].to(torch.int32).clamp(0, h - 1).long()
+            bi = torch.arange(b, device=u.device)[:, None]
+            proj_img_fts = img_fts[bi, v, u]  # (B, P, C1)
 
-        seg_logits = self.seg_logits(pc_fts).float()
-        seg_softmax = torch.softmax(seg_logits, dim=-1)
-        seg_preds = seg_softmax.argmax(-1)
-        fg_softmax = seg_softmax[..., 1:]
-        seg_scores = fg_softmax.amax(-1)
-        seg_fg_preds = fg_softmax.argmax(-1)
-        if self.mode in ("train", "val"):
-            foreground_mask = label_segs > 0
-        else:
-            foreground_mask = seg_preds > 0
+            seg_logits = self.seg_logits(pc_fts).float()
+            seg_softmax = torch.softmax(seg_logits, dim=-1)
+            seg_preds = seg_softmax.argmax(-1)
+            fg_softmax = seg_softmax[..., 1:]
+            seg_scores = fg_softmax.amax(-1)
+            seg_fg_preds = fg_softmax.argmax(-1)
+            if self.mode in ("train", "val"):
+                foreground_mask = label_segs > 0
+            else:
+                foreground_mask = seg_preds > 0
 
-        # The bin head's GT rows; the segmentation's stay full-resolution.
-        enc_label_segs, enc_label_regs = label_segs, label_regs
-        if self.mode in ("val", "test") and not rpn_cfg.rpn_fixed_num_proposal_nms:
-            fg_idx = foreground_resample_indices(foreground_mask, seg_scores,
-                                                 min(NUM_FG_POINT, p)).long()
+            # The bin head's GT rows; the segmentation's stay full-resolution.
+            enc_label_segs, enc_label_regs = label_segs, label_regs
+            if self.mode in ("val", "test") and not rpn_cfg.rpn_fixed_num_proposal_nms:
+                fg_idx = foreground_resample_indices(foreground_mask, seg_scores,
+                                                     min(NUM_FG_POINT, p)).long()
 
-            def rows(a):
-                if a is None:
-                    return None
-                idx = fg_idx if a.dim() == 2 else fg_idx[..., None].expand(-1, -1, a.shape[-1])
-                return a.gather(1, idx)
+                def rows(a):
+                    if a is None:
+                        return None
+                    idx = fg_idx if a.dim() == 2 else fg_idx[..., None].expand(-1, -1, a.shape[-1])
+                    return a.gather(1, idx)
 
-            (pc_pts_out, pc_fts, proj_img_fts, pc_intensity, seg_fg_preds, seg_scores,
-             foreground_mask, enc_label_segs, enc_label_regs) = map(rows, (
-                 pc_pts_out, pc_fts, proj_img_fts, pc_intensity, seg_fg_preds, seg_scores,
-                 foreground_mask, enc_label_segs, enc_label_regs))
-            p = fg_idx.shape[1]
+                (pc_pts_out, pc_fts, proj_img_fts, pc_intensity, seg_fg_preds, seg_scores,
+                 foreground_mask, enc_label_segs, enc_label_regs) = map(rows, (
+                     pc_pts_out, pc_fts, proj_img_fts, pc_intensity, seg_fg_preds, seg_scores,
+                     foreground_mask, enc_label_segs, enc_label_regs))
+                p = fg_idx.shape[1]
 
-        proposal_fts, proposal_img_fts, fusion_mean_div = pc_fts, proj_img_fts, 2.0
-        p_img, p_pc = cfg.path_drop_probabilities
-        if training and not (p_img == p_pc == 1.0):
-            if "path_drop" not in gens:
-                raise ValueError("path drop in training needs a 'path_drop' generator")
-            uniforms = torch.rand(3, generator=gens["path_drop"], device=pc_input.device)
-            img_mask, pc_mask = create_path_drop_masks(p_img, p_pc, uniforms)
-            proposal_fts = proposal_fts * pc_mask
-            proposal_img_fts = proposal_img_fts * img_mask
-            fusion_mean_div = img_mask + pc_mask
-        if rpn_cfg.rpn_fusion_method == "mean":
-            fused = (proposal_fts + proposal_img_fts) / fusion_mean_div
-        elif rpn_cfg.rpn_fusion_method == "concat":
-            fused = torch.cat([proposal_fts, proposal_img_fts], dim=-1)
-        else:
-            raise ValueError(rpn_cfg.rpn_fusion_method)
-        x = fused
-        for i, fc in enumerate(cfg.layers_config.rpn_fc_layers):
-            x = getattr(self, f"fc{i}")(x)
-            if training:
-                x = dropout(x, fc.dropout_rate, gens.get("dropout"), self.dp_group)
-        out = self.fc_output(x).float().reshape(b, p, k, -1)
-        fields = parse_bin_head(out, nbx, nbz, nbt)
+            proposal_fts, proposal_img_fts, fusion_mean_div = pc_fts, proj_img_fts, 2.0
+            p_img, p_pc = cfg.path_drop_probabilities
+            if training and not (p_img == p_pc == 1.0):
+                if "path_drop" not in gens:
+                    raise ValueError("path drop in training needs a 'path_drop' generator")
+                uniforms = torch.rand(3, generator=gens["path_drop"], device=pc_input.device)
+                img_mask, pc_mask = create_path_drop_masks(p_img, p_pc, uniforms)
+                proposal_fts = proposal_fts * pc_mask
+                proposal_img_fts = proposal_img_fts * img_mask
+                fusion_mean_div = img_mask + pc_mask
+            if rpn_cfg.rpn_fusion_method == "mean":
+                fused = (proposal_fts + proposal_img_fts) / fusion_mean_div
+            elif rpn_cfg.rpn_fusion_method == "concat":
+                fused = torch.cat([proposal_fts, proposal_img_fts], dim=-1)
+            else:
+                raise ValueError(rpn_cfg.rpn_fusion_method)
+            x = fused
+            for i, fc in enumerate(cfg.layers_config.rpn_fc_layers):
+                x = getattr(self, f"fc{i}")(x)
+                if training:
+                    x = dropout(x, fc.dropout_rate, gens.get("dropout"), self.dp_group)
+            out = self.fc_output(x).float().reshape(b, p, k, -1)
+            fields = parse_bin_head(out, nbx, nbz, nbt)
 
         predictions = {
             "seg_softmax": seg_softmax,
@@ -332,14 +337,16 @@ class RpnModel(nn.Module):
             "foreground_mask": foreground_mask,
         }
         if self.mode in ("val", "test"):
-            predictions.update(self._proposals(fields, pc_pts_out, seg_scores, seg_fg_preds))
+            with tracing.span("rpn.proposals"):
+                predictions.update(self._proposals(fields, pc_pts_out, seg_scores, seg_fg_preds))
             if self.mode == "val" and label_boxes is not None:
                 iou3d, iou2d = box_3d_iou(predictions["proposals"], label_boxes)
                 predictions["proposal_iou3d"] = iou3d  # (B, post, m)
                 predictions["proposal_iou2d"] = iou2d
         if self.mode in ("train", "val"):
-            predictions.update(self._targets(fields, pc_pts_out, label_segs, enc_label_segs,
-                                             enc_label_regs))
+            with tracing.span("rpn.targets"):
+                predictions.update(self._targets(fields, pc_pts_out, label_segs, enc_label_segs,
+                                                 enc_label_regs))
             hits = (seg_preds == label_segs.long()).float()
             if self.dp_group is None:
                 predictions["seg_accuracy"] = hits.mean()
@@ -380,7 +387,8 @@ class RpnModel(nn.Module):
         top_idx = descending_order(seg_scores)[:, :min(pre, p)]
         top_conf = seg_scores.gather(1, top_idx)
         top_props = proposals.gather(1, top_idx[..., None].expand(-1, -1, 7))
-        keep, keep_valid = oriented_nms_boxes_3d(top_props, top_conf, thresh, post)
+        with tracing.span("rpn.nms"):
+            keep, keep_valid = oriented_nms_boxes_3d(top_props, top_conf, thresh, post)
         safe = keep.clamp(min=0).long()
         return {
             "proposals": top_props.gather(1, safe[..., None].expand(-1, -1, 7)),

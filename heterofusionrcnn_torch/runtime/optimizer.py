@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from heterofusionrcnn_torch.configs.config import OptimizerConfig
+from heterofusionrcnn_torch.runtime import tracing
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 RMS_DECAY, RMS_EPS = 0.9, 1e-8
@@ -120,12 +121,16 @@ class Optimizer:
         """One update of every parameter in place (and of the EMA)."""
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
-        for p, u in zip(self.params, self.updates(self.clip(list(grads)))):
-            p.add_(u)
+        with tracing.span("optimizer.clip"):
+            grads = self.clip(list(grads))
+        with tracing.span("optimizer.update"):
+            for p, u in zip(self.params, self.updates(grads)):
+                p.add_(u)
         if self.ema is not None:
             d = self.ema_decay
-            for e, p in zip(self.ema, self.params):
-                e.copy_(d * e + (1.0 - d) * p)
+            with tracing.span("optimizer.ema"):
+                for e, p in zip(self.ema, self.params):
+                    e.copy_(d * e + (1.0 - d) * p)
         self.count += 1
 
     def ema_state_dict(self) -> Optional[Dict[str, torch.Tensor]]:

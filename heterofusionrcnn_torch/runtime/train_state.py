@@ -26,6 +26,7 @@ import torch.distributed as dist
 from torch import nn
 
 from heterofusionrcnn_torch.parallel.mesh import all_reduce_flat, set_data_parallel_group
+from heterofusionrcnn_torch.runtime import tracing
 from heterofusionrcnn_torch.runtime.optimizer import Optimizer
 
 RPN_BATCH_KEYS = (
@@ -75,20 +76,26 @@ def train_step(state: TrainState, forward: Callable, loss_fn: Callable):
     loss; the gradients and the loss shares are summed over the ranks in
     one all-reduce of a flat buffer, so every rank gets the global
     gradient and the global metrics."""
-    model = state.model
-    model.train()
-    params: List[torch.Tensor] = state.optimizer.params
-    with torch.enable_grad():
-        preds = forward(model, state.generators)
-        loss_dict, total = loss_fn(preds)
-        grads = torch.autograd.grad(total, params)
-    names = list(loss_dict)
-    values = [loss_dict[k].detach() for k in names] + [total.detach()]
-    if state.group is not None:
-        summed = all_reduce_flat([*grads, *values], state.group)
-        grads, values = summed[:len(grads)], summed[len(grads):]
-    state.optimizer.step(grads)
-    state.step += 1
+    with tracing.span("train.step"):
+        model = state.model
+        model.train()
+        params: List[torch.Tensor] = state.optimizer.params
+        with torch.enable_grad():
+            with tracing.span("train.forward"):
+                preds = forward(model, state.generators)
+            with tracing.span("train.loss"):
+                loss_dict, total = loss_fn(preds)
+            with tracing.span("train.backward"):
+                grads = torch.autograd.grad(total, params)
+        names = list(loss_dict)
+        values = [loss_dict[k].detach() for k in names] + [total.detach()]
+        if state.group is not None:
+            with tracing.span("train.all_reduce"):
+                summed = all_reduce_flat([*grads, *values], state.group)
+            grads, values = summed[:len(grads)], summed[len(grads):]
+        with tracing.span("train.optimizer"):
+            state.optimizer.step(grads)
+        state.step += 1
     metrics = dict(zip(names, values))
     metrics["total_loss"] = values[-1]
     return preds, metrics

@@ -11,6 +11,16 @@ logs/metrics.jsonl (and TensorBoard where it imports), a checkpoint every
 card unless the caller passes `device="cpu"`; float32 matmuls and
 convolutions stay in full float32 (TF32 off, cuDNN's backward included).
 
+The profile (`logs/profile/trace_step<N>.json`, a Chrome trace) holds the
+port's spans (`runtime/tracing.py`) as `hfr.*` ranges on the host
+thread's row: `hfr.train.step` around `hfr.train.forward` (the models'
+`hfr.rpn.*` or `hfr.rcnn.*` inside), `hfr.train.loss`,
+`hfr.train.backward`, `hfr.train.all_reduce` (data-parallel) and
+`hfr.train.optimizer` (`hfr.optimizer.clip`, `.update`, `.ema`). The
+operators, the `hfr::<op>` custom ops and the `cudaLaunchKernel` calls
+nest inside them; each kernel on the device's rows links back to its
+launch, and an idle stretch there falls under the range open on the host.
+
 Data-parallel (a process group of W ranks, `parallel/`): every rank runs
 this loop on its own batches, each starting from rank 0's state
 (`replicate_state`, after a warm start or a resume); the learning rate is

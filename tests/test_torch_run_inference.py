@@ -114,6 +114,10 @@ def test_run_inference_cli_matches_jax(tmp_path, monkeypatch):
                        / "final_predictions_and_scores" / "two" / "3_7_fused")
     assert result["frames"] == list(FRAMES)
     assert sorted(os.listdir(out_dir)) == [f"{f}.txt" for f in FRAMES]
+    # The host ms a frame of each span, the root first.
+    span_ms = result["span_ms"]
+    assert list(span_ms)[:2] == ["two_stage", "rpn"]
+    assert span_ms["two_stage"] >= span_ms["rpn"] + span_ms["rcnn"] > 0
     # Two VGG passes a frame (the RCNN's own): 7 convs and 3 transposed
     # convs each at unittest depth; one crop.
     assert {k: c.calls for k, c in counts.items()} == {
